@@ -1,0 +1,197 @@
+"""Rules the PyTorch port keeps, checked on the CPU.
+
+* The port imports neither ``jax`` nor the JAX package, and neither does
+  ``chip_smoke.py``.
+* Entry points run on the CUDA card unless the caller asks for the CPU, and
+  raise when there is no card.
+* A kernel wrapper runs the plain version only for CPU tensors; the kernel
+  build raises when ``nvcc`` fails and rebuilds only when a source changes.
+* ``chip_smoke.py`` fails without a card and without the repository beside it.
+"""
+
+import ast
+import os
+import pathlib
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from sfmfromscratch_tpu_torch.ops.cuda import build
+from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
+from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+from sfmfromscratch_tpu_torch.utils.device import resolve_device
+from sfmfromscratch_tpu_torch.utils.precision import f32_precision, mm_f32
+
+torch.set_num_threads(1)   # tier-1 runs several pytest workers at once
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "sfmfromscratch_tpu_torch"
+_FORBIDDEN = ("jax", "jaxlib", "sfmfromscratch_tpu")
+
+
+def _forbidden(name: str) -> bool:
+    return any(name == f or name.startswith(f + ".") for f in _FORBIDDEN)
+
+
+def test_port_imports_no_jax_in_a_fresh_process():
+    """Import every module of the port, and ``chip_smoke.py``, in a fresh
+    interpreter: neither ``jax`` nor ``sfmfromscratch_tpu`` gets loaded."""
+    code = (
+        "import importlib, pkgutil, sys\n"
+        "import sfmfromscratch_tpu_torch as p\n"
+        "for m in pkgutil.walk_packages(p.__path__, p.__name__ + '.'):\n"
+        "    importlib.import_module(m.name)\n"
+        "import chip_smoke\n"
+        "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
+        f"{_FORBIDDEN!r})\n"
+        "print('LOADED', len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
+        "print('FORBIDDEN', bad)\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN []" in r.stdout, r.stdout
+    assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
+
+
+def test_port_sources_name_no_jax():
+    """No import statement of the port or of ``chip_smoke.py`` names ``jax``
+    or the JAX package, not even inside a function."""
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    assert len(files) >= 20
+    for path in files:
+        for node in ast.walk(ast.parse(path.read_text(), str(path))):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""] if node.level == 0 else []
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (path, names)
+
+
+def test_entry_points_need_cuda_unless_cpu(monkeypatch):
+    from sfmfromscratch_tpu_torch.config import ExtractorConfig
+    from sfmfromscratch_tpu_torch.pipeline.frontend import FeatureRunner
+    from sfmfromscratch_tpu_torch.pipeline.two_view import reconstruct_two_view
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    img = np.zeros((48, 64, 3), np.float32)
+    K = np.eye(3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        reconstruct_two_view(img, img, K)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        reconstruct_two_view(img, img, K, device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        FeatureRunner.run(img, img, ExtractorConfig())
+    assert resolve_device("cpu") == torch.device("cpu")
+    fr = FeatureRunner.run(img, img, ExtractorConfig(num_interest_points=20, pyramid_level=1),
+                           scale_factor=1.0, device="cpu")
+    assert fr.image1_bw.device.type == "cpu"
+
+
+def test_wrappers_dispatch_by_device():
+    """CPU tensors take the plain version; a tensor that is on neither the
+    CPU nor a CUDA card is refused, as is input the kernel does not take."""
+    img = torch.rand(2, 20, 24)
+    assert torch.equal(HK.harris_response_fused(img, 7, 6.0, 0.05),
+                       HK.harris_response(img, 7, 6.0, 0.05))
+    before = (HK.launches, MK.launches)
+    d1, d2 = torch.rand(30, 128), torch.rand(40, 128)
+    s1, s2, idx = MK.match_top2_fused(d1, d2)
+    ref = ((d1[:, None] - d2[None]) ** 2).sum(-1)
+    assert torch.equal(idx, ref.argmin(1).int())
+    torch.testing.assert_close(s1, ref.min(1).values, atol=0, rtol=1e-5)
+    assert (HK.launches, MK.launches) == before   # the plain versions count no launch
+    with pytest.raises(ValueError):
+        HK.harris_response_fused(torch.empty(20, 24, device="meta"), 7, 6.0, 0.05)
+    with pytest.raises(ValueError):
+        MK.match_top2_fused(torch.empty(3, 8, device="meta"), torch.empty(4, 8, device="meta"))
+    with pytest.raises(ValueError):
+        HK._launch(torch.zeros(1, 8, 8, dtype=torch.float64), 7, 6.0, 0.05)
+    with pytest.raises(ValueError):
+        HK._launch(torch.zeros(1, 8, 8), 8, 6.0, 0.05)      # even Gaussian size
+    with pytest.raises(ValueError):
+        MK._launch(torch.zeros(1, 3, 8), torch.zeros(1, 4, 7), torch.zeros(1, 4))
+
+
+def _fake_nvcc(tmp_path, ok: bool) -> str:
+    """A stand-in compiler: writes its ``-o`` output (or fails) and logs
+    each call."""
+    script = tmp_path / ("nvcc_ok" if ok else "nvcc_bad")
+    log = tmp_path / "calls.log"
+    body = (f'echo "$@" >> {log}\n'
+            'while [ "$#" -gt 0 ]; do if [ "$1" = "-o" ]; then out="$2"; fi; shift; done\n'
+            + ('echo built > "$out"\n' if ok else 'echo "error: refused" >&2; exit 2\n'))
+    script.write_text("#!/bin/sh\n" + body)
+    script.chmod(0o755)
+    return str(script)
+
+
+def test_build_raises_when_nvcc_fails(tmp_path, monkeypatch):
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: _fake_nvcc(tmp_path, ok=False))
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        build.build_all()
+    assert not any(p.suffix == ".so" for p in (tmp_path / "_build").iterdir())
+
+
+def test_build_is_keyed_by_source(tmp_path, monkeypatch):
+    """One nvcc per source with the sm_90a flags; a second build with
+    unchanged sources starts nothing; a changed source gets a new library."""
+    csrc = tmp_path / "csrc"
+    shutil.copytree(build.CSRC, csrc)
+    monkeypatch.setattr(build, "CSRC", str(csrc))
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: _fake_nvcc(tmp_path, ok=True))
+    build.build_all()
+    calls = (tmp_path / "calls.log").read_text().splitlines()
+    assert len(calls) == len(build.SOURCES) == 2
+    assert all("arch=compute_90a,code=sm_90a" in c and "-shared" in c for c in calls)
+    paths = {n: build.library_path(n) for n in build.SOURCES}
+    assert all(os.path.exists(p) for p in paths.values())
+    build.build_all()
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 2
+    (csrc / "harris.cu").write_text((csrc / "harris.cu").read_text() + "\n// changed\n")
+    assert build.library_path("harris") != paths["harris"]
+    assert build.library_path("match_top2") == paths["match_top2"]
+    build.build_all()
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 3
+
+
+def test_precision_scope_turns_off_tf32_and_restores():
+    old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = True
+        torch.backends.cudnn.allow_tf32 = True
+        with f32_precision():
+            assert not torch.backends.cuda.matmul.allow_tf32
+            assert not torch.backends.cudnn.allow_tf32
+
+        @mm_f32
+        def flags():
+            return torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32
+
+        assert flags() == (False, False)
+        assert torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32 = old
+
+
+def test_chip_smoke_fails_without_card_or_repository(tmp_path):
+    """Here there is no CUDA card: the script exits non-zero and prints no
+    result line. Copied alone into an empty directory it fails too."""
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["CUDA_VISIBLE_DEVICES"] = ""
+    r = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout, (r.returncode, r.stdout)
+    shutil.copy(ROOT / "chip_smoke.py", tmp_path / "chip_smoke.py")
+    r = subprocess.run([sys.executable, "chip_smoke.py"], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode != 0 and '"ok"' not in r.stdout, (r.returncode, r.stdout)
