@@ -9,20 +9,27 @@ Phases, each printing JSON lines:
              (every ``csrc/*.cu`` built from the checkout, one nvcc each, in
              parallel).
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
-             at the main path's shapes and the extra regimes below, timed warm
-             with CUDA events beside its bound, the plain version and one
-             library call.
+             at the engine's shapes (Harris B=10 per pyramid level, matcher
+             B=9 pairs), the two-view shapes and the extra regimes below,
+             timed warm with CUDA events beside its bound, the plain version
+             and one library call.
 3. slice   — ``reconstruct_two_view`` on views 1 and 2 of the bench scene at
              the bench settings, through both kernels (their launch counts are
              zeroed just before the timed run and read just after); the pose is
              held to tolerances pinned beside the JAX package's CPU result, the
              frontend to the port's own CPU run on the same images, and RANSAC
              to the port's CPU run on the same uniforms.
+4. engine  — ``SfmEngine`` on ``bench.py``'s 10-view sequence at its
+             configuration, once cold and once warm; the launch counts are
+             zeroed before the warm run and read after it. The result is held
+             to pins beside the JAX engine's CPU spread
+             (``tools/engine_pins.py``), and the card's final BA problem is
+             solved again on the CPU.
 
-The line before last is ``{"kernels": [...]}``; the last is
-``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
-result line. Without a CUDA card, or without the rest of the repository
-beside this file, it exits non-zero at once.
+The line before last is ``{"kernels": [...]}``, with the engine's launch
+counts; the last is ``{"ok": true, "device": {...}}``. Any failed check
+exits non-zero with no result line. Without a CUDA card, or without the rest
+of the repository beside this file, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -58,6 +65,32 @@ PIN_ROT_DEG = 1.0
 PIN_TDIR_DEG = 45.0
 PIN_INLIERS = (470, 505)
 PIN_REPROJ_PX = 1.5
+
+# Engine pins from the JAX engine on the CPU on the same sequence and
+# configuration (tools/engine_pins.py, config.seed 0-4, 9 cameras each):
+#   ATE over trajectory extent 0.0049-0.0619, post-BA mean reprojection error
+#   0.113-0.276 px, tracks 2967-3384.
+# The port draws other RANSAC samples, so each pin covers that seed spread with
+# margin: 1.6x the worst ATE and reprojection error, and two thirds of the
+# fewest tracks (a chain that links badly loses tracks long before it loses
+# cameras).
+PIN_ENGINE_CAMERAS = 9
+PIN_ENGINE_ATE = 0.10
+PIN_ENGINE_REPROJ_PX = 0.45
+PIN_ENGINE_MIN_TRACKS = 2000
+# The warm run's launches: Harris once per pyramid level for the 10-image
+# batch, the matcher once for the 9 pairs.
+ENGINE_LAUNCHES = {"harris_response_fused": 3, "match_top2_fused": 1}
+# The card's final BA problem solved again on the CPU. The engine fixes no
+# camera, so LM damps a 7-dof similarity gauge, and its accept/reject path
+# parts with rounding once steps along the gauge dominate: the first chip run
+# (PR 2) stopped after 19 iterations on the card and 27 on the CPU, with final
+# errors 1.3% apart (0.1188 and 0.1173 px). So the first BA_PREFIX iterations
+# must agree in cost to BA_PREFIX_RTOL, and the full runs' final errors to
+# BA_FINAL_RTOL.
+BA_PREFIX = 3
+BA_PREFIX_RTOL = 1e-3
+BA_FINAL_RTOL = 0.05
 
 HARRIS_TOL = 1e-5      # max |kernel - plain| <= HARRIS_TOL * max |plain R|
 MATCH_RTOL = 1e-4      # squared distances, relative
@@ -135,6 +168,7 @@ BENCH_EXTRACTOR = dict(num_interest_points=2500, ksize=3, gaussian_size=7, sigma
                        alpha=0.05, feature_width=18, pyramid_level=3,
                        pyramid_scale_factor=1.1)
 BENCH_MATCHER = dict(ratio_threshold=0.85, max_matches=2500)
+BENCH_BA = dict(ftol=1e-3)
 BENCH_SEED = 5
 
 
@@ -156,6 +190,36 @@ def bench_pair():
             R, t / np.linalg.norm(t))
 
 
+def bench_sequence(out_dir: str, num_views: int = 10):
+    """Write ``bench.py::build_sequence``'s scene as ``1.jpg..N.jpg`` into
+    ``out_dir`` (``tests/render.write_sequence``); returns (K, ground-truth
+    world-to-camera poses)."""
+    import numpy as np
+
+    mod = _render_module()
+    images, K, poses, _ = mod.render_sequence(
+        np.random.default_rng(7), num_views=num_views, num_points=600, img_hw=(360, 480),
+        f=520.0, step_t=(-0.12, 0.01, 0.02), step_r=(0.006, -0.015, 0.004),
+    )
+    mod.write_sequence(out_dir, images)
+    return K, poses
+
+
+def trajectory_error(global_poses, gt_poses):
+    """(ATE, trajectory extent) of an engine's ``global_poses`` (cameras of
+    images 2..N) against the ground truth, as ``bench.py::log_ate`` computes
+    them: camera centres, similarity alignment, RMSE."""
+    import numpy as np
+
+    from sfmfromscratch_tpu_torch.utils.metrics import absolute_trajectory_error, camera_centers
+
+    rvecs = np.stack([np.asarray(rv, np.float64) for rv, _ in global_poses])
+    ts = np.stack([np.asarray(t, np.float64) for _, t in global_poses])
+    est = camera_centers(rvecs, ts)
+    gt = np.stack([-(R.T @ t) for R, t in gt_poses[1:len(est) + 1]])
+    return absolute_trajectory_error(est, gt), float(np.linalg.norm(gt.max(0) - gt.min(0)))
+
+
 def pose_errors(R, t, R_gt, t_gt):
     """(rotation error, translation-direction error) in degrees."""
     import numpy as np
@@ -172,9 +236,13 @@ def _check(ok: bool, what: str) -> None:
         raise AssertionError(what)
 
 
+ENGINE_LEVELS = [(360, 480), (327, 436), (297, 396)]   # 3 levels x1.1 of 360x480
+
+
 def harris_phase(dev, peaks):
-    """Harris kernel vs plain at the pyramid levels (B=2) and the 960x1280
-    regime; returns the numbers of the main path's six launches."""
+    """Harris kernel vs plain at the engine's pyramid levels (B=10), the
+    two-view's (B=1) and the 960x1280 regime; returns the numbers of the
+    engine's three launches."""
     import torch
 
     from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
@@ -182,8 +250,9 @@ def harris_phase(dev, peaks):
     G, sigma, alpha = 7, 6.0, 0.05
     bw, fl = peaks
     gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [(2, 360, 480), (2, 327, 436), (2, 297, 396), (1, 960, 1280)]
-    rows, worst = [], 0.0
+    cases = [(10, H, W) for H, W in ENGINE_LEVELS] + [(1, H, W) for H, W in ENGINE_LEVELS] \
+        + [(1, 960, 1280)]
+    rows = []
     for B, H, W in cases:
         img = torch.rand((B, H, W), generator=gen, device=dev)
         got = HK.harris_response_fused(img, G, sigma, alpha)
@@ -193,44 +262,34 @@ def harris_phase(dev, peaks):
         scale = float(ref.abs().max())
         _check(bool(torch.isfinite(got).all()), f"harris {B}x{H}x{W}: non-finite")
         _check(err <= HARRIS_TOL * scale, f"harris {B}x{H}x{W}: max err {err} > {HARRIS_TOL} * {scale}")
-        worst = max(worst, err / scale)
         px = B * H * W
         rows.append(dict(
             shape=[B, H, W], max_abs_err=err, max_abs_R=scale,
             ms=_cuda_ms(lambda: HK.harris_response_fused(img, G, sigma, alpha)),
-            plain_ms=_cuda_ms(lambda: HK.harris_response(img, G, sigma, alpha)),
+            plain_ms=_cuda_ms(lambda: HK.harris_response(img, G, sigma, alpha), reps=5),
             bound_ms=max(8.0 * px / bw, px * (16 + 12 * G) / fl) * 1e3,
         ))
     _print({"phase": "harris", "tol_rel": HARRIS_TOL, "cases": rows})
 
-    # The main path launches the kernel once per image and pyramid level
-    # (B=1): sum one B=1 launch of each level, twice for the two images.
-    ms = plain_ms = bound_ms = 0.0
-    max_err = 0.0
-    for H, W in [(360, 480), (327, 436), (297, 396)]:
-        img = torch.rand((1, H, W), generator=gen, device=dev)
-        got = HK.harris_response_fused(img, G, sigma, alpha)
-        ref = HK.harris_response(img, G, sigma, alpha)
-        err = float((got - ref).abs().max())
-        _check(err <= HARRIS_TOL * float(ref.abs().max()), f"harris 1x{H}x{W}: max err {err}")
-        max_err = max(max_err, err)
-        ms += 2 * _cuda_ms(lambda: HK.harris_response_fused(img, G, sigma, alpha))
-        plain_ms += 2 * _cuda_ms(lambda: HK.harris_response(img, G, sigma, alpha))
-        bound_ms += 2 * max(8.0 * H * W / bw, H * W * (16 + 12 * G) / fl) * 1e3
+    engine = rows[:3]
+    two_view_ms = 2 * sum(r["ms"] for r in rows[3:6])
     return dict(
         name="harris_response_fused", route="cuda",
         source="sfmfromscratch_tpu_torch/csrc/harris.cu",
         replaces="sfmfromscratch_tpu/ops/pallas/harris_kernel.py:68 (_harris_kernel), "
                  "sfmfromscratch_tpu/ops/pallas/harris_kernel.py:150 (_harris_tiled_kernel)",
-        max_abs_err=max_err, ms=ms, plain_ms=plain_ms, bound_ms=bound_ms,
-        bound_by="bytes", library_ms=None,
-        per="two-view run: 2 images x 3 levels (360x480, 327x436, 297x396), B=1",
+        max_abs_err=max(r["max_abs_err"] for r in engine),
+        ms=sum(r["ms"] for r in engine), plain_ms=sum(r["plain_ms"] for r in engine),
+        bound_ms=sum(r["bound_ms"] for r in engine), bound_by="bytes", library_ms=None,
+        per="engine run: 3 launches, B=10 at 360x480, 327x436, 297x396",
+        two_view_ms=two_view_ms,
     )
 
 
 def match_phase(dev, peaks):
-    """Matcher kernel vs plain at the main path's shape, a batch of 9 pairs
-    and a 6000-row database; returns the numbers of the main path's launch."""
+    """Matcher kernel vs plain at the engine's shape (9 pairs), the
+    two-view's (one pair) and a 6000-row database; returns the numbers of the
+    engine's launch."""
     import torch
 
     from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
@@ -239,7 +298,7 @@ def match_phase(dev, peaks):
     bw, fl = peaks
     gen = torch.Generator(device=dev).manual_seed(1)
     D = 128
-    cases = [(1, 2499, 2499), (9, 2499, 2499), (1, 2499, 6000)]
+    cases = [(9, 2499, 2499), (1, 2499, 2499), (1, 2499, 6000)]
     rows, main = [], None
     for B, n1, n2 in cases:
         # RootSIFT-like descriptors: non-negative, unit L2 norm.
@@ -288,7 +347,8 @@ def match_phase(dev, peaks):
         max_abs_err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
         bound_ms=main["bound_ms"], bound_by="operations", library_ms=main["library_ms"],
         library="torch.cdist + topk(2)",
-        per="two-view run: one launch, B=1, 2499 x 2499 x 128",
+        per="engine run: one launch, B=9 pairs, 2499 x 2499 x 128",
+        two_view_ms=rows[1]["ms"],
     )
 
 
@@ -407,6 +467,103 @@ def slice_phase(dev):
     return launches
 
 
+def engine_config():
+    """``bench.py::engine_config`` in the port's config classes."""
+    from sfmfromscratch_tpu_torch.config import (
+        BundleAdjustConfig,
+        ExtractorConfig,
+        MatcherConfig,
+        PipelineConfig,
+        RansacConfig,
+    )
+
+    return PipelineConfig(
+        extractor=ExtractorConfig(**BENCH_EXTRACTOR), matcher=MatcherConfig(**BENCH_MATCHER),
+        ransac=RansacConfig(), ba=BundleAdjustConfig(**BENCH_BA), scale_factor=1.0,
+    )
+
+
+def engine_phase(dev):
+    """``SfmEngine`` on the bench sequence at the bench configuration, cold
+    then warm; returns the warm run's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
+    from sfmfromscratch_tpu_torch.ba.problem import BAProblem
+    from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
+    from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    cfg = engine_config()
+    n = 10
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as seq:
+        K, gt = bench_sequence(seq, n)
+        t0 = time.perf_counter()
+        SfmEngine(seq, n, config=cfg, single_K=K, device=dev)
+        cold_s = time.perf_counter() - t0
+
+        HK.launches = 0
+        MK.launches = 0
+        t0 = time.perf_counter()
+        eng = SfmEngine(seq, n, config=cfg, single_K=K, device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches = {"harris_response_fused": HK.launches, "match_top2_fused": MK.launches}
+
+    cams = len(eng.global_poses)
+    ate, extent = trajectory_error(eng.global_poses, gt)
+    e0, e1 = eng.errors_before_after_ba
+    tracks = eng.map.num_tracks
+    ba_iters = eng.ba_result.iterations_used
+
+    # The card's final BA problem solved again on the CPU: the first
+    # iterations one by one, then the full run.
+    prob_cpu = BAProblem(*(None if v is None else v.cpu() for v in eng.ba_problem))
+    b = cfg.ba
+    kw = dict(cg_iters=60, init_damping=b.init_damping, damping_up=b.damping_up,
+              damping_down=b.damping_down, ftol=b.ftol, huber_delta=b.huber_delta)
+    prefix = []
+    for k in range(1, 7):
+        card = float(bundle_adjust(eng.ba_problem, max_iters=k, **kw).final_cost)
+        cpu = float(bundle_adjust(prob_cpu, max_iters=k, **kw).final_cost)
+        prefix.append([k, card, cpu, abs(card - cpu) / cpu])
+    t0 = time.perf_counter()
+    res_cpu = bundle_adjust(prob_cpu, max_iters=b.max_lm_iters, **kw)
+    cpu_ba_s = time.perf_counter() - t0
+    cpu_e1 = float(res_cpu.final_mean_error)
+
+    _print({"phase": "engine", "views": n, "cold_s": cold_s, "warm_s": warm_s,
+            "warm_frames_per_s": n / warm_s, "stage_times_s": eng.stage_times,
+            "launches": launches, "cameras": cams, "ate": ate, "extent": extent,
+            "ate_over_extent": ate / extent, "reproj_before_px": e0, "reproj_after_px": e1,
+            "tracks": tracks, "observations": eng.map.num_observations,
+            "filter_hyps_used": np.asarray(eng.filter_hyps_used).tolist(),
+            "ba_iterations": ba_iters, "ba_problem_padded": [eng.ba_problem.num_cameras,
+                                                             eng.ba_problem.num_points,
+                                                             eng.ba_problem.num_obs],
+            "ba_cpu": {"iterations": res_cpu.iterations_used, "reproj_after_px": cpu_e1,
+                       "seconds": cpu_ba_s, "prefix_k_card_cpu_cost_rel": prefix},
+            "pins": {"cameras": PIN_ENGINE_CAMERAS, "ate_over_extent": PIN_ENGINE_ATE,
+                     "reproj_px": PIN_ENGINE_REPROJ_PX, "min_tracks": PIN_ENGINE_MIN_TRACKS,
+                     "launches": ENGINE_LAUNCHES, "ba_prefix": BA_PREFIX,
+                     "ba_prefix_rtol": BA_PREFIX_RTOL, "ba_final_rtol": BA_FINAL_RTOL}})
+    _check(launches == ENGINE_LAUNCHES, f"engine launches {launches} != {ENGINE_LAUNCHES}")
+    _check(cams == PIN_ENGINE_CAMERAS, f"{cams} cameras registered, want {PIN_ENGINE_CAMERAS}")
+    _check(bool(np.isfinite([ate, e0, e1]).all()), "non-finite ATE or reprojection error")
+    _check(all(np.isfinite(np.hstack(p)).all() for p in eng.global_poses), "non-finite poses")
+    _check(bool(np.isfinite(eng.map.points()).all()), "non-finite points")
+    _check(ate / extent <= PIN_ENGINE_ATE, f"ATE over extent {ate / extent} > {PIN_ENGINE_ATE}")
+    _check(e1 <= PIN_ENGINE_REPROJ_PX, f"post-BA reprojection {e1} px > {PIN_ENGINE_REPROJ_PX}")
+    _check(tracks >= PIN_ENGINE_MIN_TRACKS, f"{tracks} tracks < {PIN_ENGINE_MIN_TRACKS}")
+    for k, card, cpu, rel in prefix[:BA_PREFIX]:
+        _check(rel <= BA_PREFIX_RTOL, f"BA cost after {k} iterations: card {card} vs CPU {cpu}")
+    _check(abs(cpu_e1 - e1) <= BA_FINAL_RTOL * e1, f"BA final error card {e1} vs CPU {cpu_e1}")
+    return launches
+
+
 def main() -> int:
     try:
         import torch
@@ -438,9 +595,11 @@ def main() -> int:
                 "peaks": {"variant": variant, "bytes_per_s": peaks[0], "fp32_flops": peaks[1]}})
 
         kernels = [harris_phase(dev, peaks), match_phase(dev, peaks)]
-        launches = slice_phase(dev)
+        two_view = slice_phase(dev)
+        launches = engine_phase(dev)
         for k in kernels:
             k["launches"] = launches[k["name"]]
+            k["launches_two_view"] = two_view[k["name"]]
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -1,12 +1,15 @@
-"""Vectorized relative-pose RANSAC: all hypotheses as one batch
-(counterpart of ``sfmfromscratch_tpu/geometry/ransac.py``).
+"""Vectorized RANSAC: relative pose and fundamental-matrix inlier filters,
+each hypothesis batch scored at once (counterpart of
+``sfmfromscratch_tpu/geometry/ransac.py``).
 
 Sampling is split in two steps. ``draw_uniforms`` draws the (B, s) uniforms
 from a ``torch.Generator``; ``uniforms_to_indices`` maps them to minimal
 samples exactly as the JAX ``sample_minimal_indices`` does. JAX draws its
-uniforms with threefry, which torch cannot reproduce, so a test hands the
-JAX-drawn uniforms to ``ransac_essential_pose(uniforms=...)`` and the two
-packages then score the same hypotheses one for one.
+uniforms with threefry, which torch cannot reproduce, so each entry point
+takes ``uniforms=``: a test hands it the JAX-drawn uniforms and the two
+packages then score the same hypotheses one for one. The adaptive programs
+run their stages in a Python loop with one host read per stage, where JAX
+runs a ``while_loop``.
 """
 
 from __future__ import annotations
@@ -45,7 +48,8 @@ def draw_uniforms(
 def uniforms_to_indices(
     u: torch.Tensor, n: int, mask: Optional[torch.Tensor], sample_size: int
 ) -> torch.Tensor:
-    """(B, s) uniforms -> (B, s) distinct valid indices per hypothesis.
+    """(..., B, s) uniforms -> (..., B, s) distinct valid indices per
+    hypothesis, for a mask of shape (..., n) (or None).
 
     Strided buckets: point j belongs to bucket j % s, and uniform (b, i)
     picks the r-th valid member of bucket i (ransac.py:86-112)."""
@@ -53,15 +57,16 @@ def uniforms_to_indices(
     if mask is None:
         loc = torch.floor(u * m).to(torch.int32).clamp_max(m - 1)
     else:
-        mask_bm = mask[: m * sample_size].reshape(m, sample_size).T       # (s, m)
-        cnt = torch.sum(mask_bm, dim=-1)                                   # (s,)
-        rank = torch.cumsum(mask_bm.to(torch.int32), dim=-1)               # (s, m)
-        k = torch.floor(u * torch.clamp_min(cnt, 1)[None, :].to(u.dtype)).to(torch.int32)
-        k = torch.minimum(k, torch.clamp_min(cnt - 1, 0)[None, :].to(torch.int32))
+        mask_bm = mask[..., : m * sample_size].reshape(
+            mask.shape[:-1] + (m, sample_size)).transpose(-1, -2)        # (..., s, m)
+        cnt = torch.sum(mask_bm, dim=-1)                                  # (..., s)
+        rank = torch.cumsum(mask_bm.to(torch.int32), dim=-1)              # (..., s, m)
+        k = torch.floor(u * torch.clamp_min(cnt, 1)[..., None, :].to(u.dtype)).to(torch.int32)
+        k = torch.minimum(k, torch.clamp_min(cnt - 1, 0)[..., None, :].to(torch.int32))
         # position of the (k+1)-th valid member: #{i : rank_i <= k}
-        loc = torch.sum((rank[None] <= k[:, :, None]).to(torch.int32), dim=-1)
+        loc = torch.sum((rank[..., None, :, :] <= k[..., None]).to(torch.int32), dim=-1)
         loc = loc.clamp_max(m - 1)
-    offsets = torch.arange(sample_size, device=u.device, dtype=torch.int32)[None, :]
+    offsets = torch.arange(sample_size, device=u.device, dtype=torch.int32)
     return (loc * sample_size + offsets).long()
 
 
@@ -138,19 +143,32 @@ def ransac_essential_pose(
     best_loose = torch.argmax(best_che * (n + 1) + inliers)
     best = torch.where(any_strict, best_strict, best_loose)
 
-    # Locally-optimized refit: re-solve F from the winner's full inlier set,
-    # keep it when the MSAC score improves; two rounds.
-    F_b, inl_b, msac_b = F[best], inl[best], msac[best]
-    for _ in range(2):
+    F_b, inl_b, _ = _lo_refit(F[best], inl[best], msac[best], p1, p2, mask, threshold, rounds=2)
+    return _pose_from_refit(F_b, inl_b, p1_s, p2_s, mask_s, K1, K2,
+                            (min_cheirality_frac * n_valid_s).to(torch.int64))
+
+
+def _lo_refit(F_b, inl_b, msac_b, p1, p2, mask, threshold: float, rounds: int):
+    """Locally-optimized refit: re-solve F from the winner's full inlier set
+    (masked n-point), keep it when the MSAC score improves; ``rounds``
+    rounds. Leading lane dimensions are allowed."""
+    maskf = mask.to(p1.dtype)
+    thr2 = threshold * threshold
+    for _ in range(rounds):
         F_r = eight_point_fundamental(p1, p2, mask=inl_b)
         d_r = epipolar_distances(F_r, p1, p2)
-        msac_r = torch.sum(torch.clamp_max(d_r * d_r, thr2) * mask)
+        msac_r = torch.sum(torch.clamp_max(d_r * d_r, thr2) * maskf, dim=-1)
         better = msac_r < msac_b
-        F_b = torch.where(better, F_r, F_b)
-        inl_b = torch.where(better, (d_r < threshold) & mask, inl_b)
+        F_b = torch.where(better[..., None, None], F_r, F_b)
+        inl_b = torch.where(better[..., None], (d_r < threshold) & mask, inl_b)
         msac_b = torch.where(better, msac_r, msac_b)
+    return F_b, inl_b, msac_b
 
-    # Decompose the refit F's essential matrix and re-select the candidate.
+
+def _pose_from_refit(F_b, inl_b, p1_s, p2_s, mask_s, K1, K2, min_strict) -> RansacPoseResult:
+    """Decompose the refit F's essential matrix and re-select the cheirality
+    candidate (the refit can change the pose, not just the inlier set)."""
+    eps = 1e-6
     E_f = essential_from_fundamental(F_b[None], K1, K2)
     R1f, R2f, tf = decompose_essential(E_f)
     Rcf = torch.stack([R1f, R1f, R2f, R2f], dim=1)[0]        # (4, 3, 3)
@@ -159,13 +177,315 @@ def ransac_essential_pose(
     front_f = (z1f > eps) & (z2f > eps) & mask_s[None, :]
     che_f = torch.sum(front_f, dim=-1)                       # (4,)
     cand = torch.argmax(che_f)
-    strict_f = torch.max(che_f) >= (min_cheirality_frac * n_valid_s).to(che_f.dtype)
-
     return RansacPoseResult(
         R=Rcf[cand],
         t=tcf[cand],
         F=F_b,
         inliers=inl_b,
         num_inliers=torch.sum(inl_b),
-        cheirality_ok=strict_f,
+        cheirality_ok=torch.max(che_f) >= min_strict,
     )
+
+
+class RansacFResult(NamedTuple):
+    F: torch.Tensor
+    inliers: torch.Tensor
+    num_inliers: torch.Tensor
+
+
+class RansacFAdaptiveResult(NamedTuple):
+    F: torch.Tensor
+    inliers: torch.Tensor
+    num_inliers: torch.Tensor
+    hyps_used: torch.Tensor    # hypotheses actually evaluated (int32)
+
+
+def _integer_pow(x: torch.Tensor, n: int) -> torch.Tensor:
+    """x**n by repeated squaring, in the order of XLA's ``integer_pow``."""
+    acc = None
+    while n > 0:
+        if n & 1:
+            acc = x if acc is None else acc * x
+        n >>= 1
+        if n > 0:
+            x = x * x
+    return acc
+
+
+def _hypotheses_needed(
+    best_count: torch.Tensor, n_valid: torch.Tensor, sample_size: int, confidence: float
+) -> torch.Tensor:
+    """Adaptive-RANSAC stopping rule in float32: with inlier ratio w from the
+    best support so far, ``log(1-p) / log(1 - w^s)`` hypotheses give
+    probability p of one all-inlier minimal sample (ransac.py:64-75)."""
+    w = best_count.to(torch.float32) / torch.clamp_min(n_valid, 1).to(torch.float32)
+    w = torch.clamp(w, 0.0, 1.0)
+    fail = torch.clamp(1.0 - _integer_pow(w, sample_size), 1e-12, 1.0 - 1e-7)
+    conf = torch.tensor(-confidence, dtype=torch.float32, device=w.device)
+    return torch.log1p(conf) / torch.log(fail)
+
+
+def _keep_going(best_count, done, n_valid, stage_size: int, max_hypotheses: int,
+                sample_size: int, confidence: float) -> torch.Tensor:
+    """The while-loop condition of the adaptive programs (ransac.py:216-226),
+    per lane. The futility stop ends a lane whose two stages found no
+    support beyond the minimal sample."""
+    needed = _hypotheses_needed(best_count, n_valid, sample_size, confidence)
+    futile = (done >= 2 * stage_size) & (best_count < sample_size + 4)
+    return ((done.to(torch.float32) < torch.clamp_max(needed, float(max_hypotheses)))
+            & (done < max_hypotheses) & ~futile)
+
+
+def _fundamental_lanes(u, p1, p2, mask, threshold: float, sample_size: int):
+    """Score (A, S, s) minimal samples of A lanes: (F, inliers, MSAC, count)
+    per hypothesis."""
+    n = p1.shape[-2]
+    idx = uniforms_to_indices(u, n, mask, sample_size)                # (A, S, s)
+    a = torch.arange(p1.shape[0], device=p1.device)[:, None, None]
+    F = eight_point_fundamental(p1[a, idx], p2[a, idx])               # (A, S, 3, 3)
+    d = epipolar_distances(F, p1[:, None], p2[:, None])               # (A, S, N)
+    inl = (d < threshold) & mask[:, None, :]
+    cnt = torch.sum(inl, dim=-1)
+    msac = torch.sum(torch.clamp_max(d * d, threshold * threshold)
+                     * mask[:, None, :].to(d.dtype), dim=-1)
+    return F, inl, msac, cnt
+
+
+@mm_f32
+def ransac_fundamental_batch(
+    generator: Optional[torch.Generator],
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    mask: torch.Tensor,
+    num_hypotheses: int = 1000,
+    threshold: float = 1.0,
+    sample_size: int = 8,
+    uniforms: Optional[torch.Tensor] = None,
+) -> RansacFResult:
+    """Fixed-count fundamental-matrix RANSAC (the reference's
+    ``find_inliers``, SFM.py:126-160) for P pairs (P, N, 2) at once: the
+    hypothesis with the most epipolar inliers wins. ``uniforms`` (P, B, s)
+    replaces the draw from ``generator``."""
+    P = p1.shape[0]
+    if uniforms is None:
+        uniforms = torch.rand((P, num_hypotheses, sample_size), generator=generator,
+                              device=p1.device, dtype=torch.float32)
+    F, inl, _, cnt = _fundamental_lanes(uniforms.to(p1.device), p1, p2, mask, threshold,
+                                        sample_size)
+    best = torch.argmax(cnt, dim=-1)
+    ar = torch.arange(P, device=p1.device)
+    return RansacFResult(F=F[ar, best], inliers=inl[ar, best], num_inliers=cnt[ar, best])
+
+
+def ransac_fundamental(
+    generator: Optional[torch.Generator],
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    num_hypotheses: int = 1000,
+    threshold: float = 1.0,
+    sample_size: int = 8,
+    uniforms: Optional[torch.Tensor] = None,
+) -> RansacFResult:
+    """``ransac_fundamental_batch`` of one pair; ``uniforms`` is (B, s)."""
+    if mask is None:
+        mask = torch.ones(p1.shape[:1], dtype=torch.bool, device=p1.device)
+    res = ransac_fundamental_batch(
+        generator, p1[None], p2[None], mask[None], num_hypotheses=num_hypotheses,
+        threshold=threshold, sample_size=sample_size,
+        uniforms=None if uniforms is None else uniforms[None],
+    )
+    return RansacFResult(*(v[0] for v in res))
+
+
+@mm_f32
+def ransac_fundamental_adaptive_batch(
+    generator: Optional[torch.Generator],
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    mask: torch.Tensor,
+    max_hypotheses: int = 6144,
+    stage_size: int = 512,
+    threshold: float = 1.0,
+    sample_size: int = 8,
+    confidence: float = 0.98,
+    lo_rounds: int = 2,
+    uniforms: Optional[torch.Tensor] = None,
+) -> RansacFAdaptiveResult:
+    """Adaptive (early-terminating) fundamental-matrix RANSAC for P pairs.
+
+    Stages of ``stage_size`` hypotheses; after each stage a lane's required
+    count is re-derived from its best support (``_hypotheses_needed``) and
+    the lane stops once it has drawn that many, or ``max_hypotheses``, or
+    two futile stages (ransac.py:172-266). A Python loop replaces the JAX
+    ``while_loop``: one host read per stage decides which lanes go on, and
+    only those lanes are scored, so each lane keeps its own stage count and
+    frozen winner, as under ``vmap``. Each lane finishes with ``lo_rounds``
+    of locally-optimized refit.
+
+    ``uniforms`` (P, stages, stage_size, s) replaces the draws from
+    ``generator``: lane b's stage k uses ``uniforms[b, k]``.
+    """
+    P, n = p1.shape[0], p1.shape[1]
+    dev = p1.device
+    n_valid = torch.sum(mask, dim=-1)
+    F_b = torch.eye(3, dtype=p1.dtype, device=dev).repeat(P, 1, 1)
+    inl_b = torch.zeros((P, n), dtype=torch.bool, device=dev)
+    msac_b = torch.full((P,), float("inf"), dtype=p1.dtype, device=dev)
+    cnt_b = torch.zeros((P,), dtype=torch.int32, device=dev)
+    done = torch.zeros((P,), dtype=torch.int32, device=dev)
+    stage = 0
+    while True:
+        go = _keep_going(cnt_b, done, n_valid, stage_size, max_hypotheses, sample_size,
+                         confidence).cpu()
+        if not bool(go.any()):
+            break
+        lanes = torch.nonzero(go)[:, 0]
+        ld = lanes.to(dev)
+        if uniforms is None:
+            u = torch.rand((len(lanes), stage_size, sample_size), generator=generator,
+                           device=dev, dtype=torch.float32)
+        else:
+            u = uniforms[lanes, stage].to(dev)
+        F, inl, msac, cnt = _fundamental_lanes(u, p1[ld], p2[ld], mask[ld], threshold,
+                                               sample_size)
+        b = torch.argmin(msac, dim=-1)
+        ar = torch.arange(len(lanes), device=dev)
+        F_s, inl_s, msac_s, cnt_s = F[ar, b], inl[ar, b], msac[ar, b], cnt[ar, b]
+        better = msac_s < msac_b[ld]
+        F_b[ld] = torch.where(better[:, None, None], F_s, F_b[ld])
+        inl_b[ld] = torch.where(better[:, None], inl_s, inl_b[ld])
+        msac_b[ld] = torch.where(better, msac_s, msac_b[ld])
+        cnt_b[ld] = torch.where(better, cnt_s.to(torch.int32), cnt_b[ld])
+        done[ld] += stage_size
+        stage += 1
+    F_b, inl_b, _ = _lo_refit(F_b, inl_b, msac_b, p1, p2, mask, threshold, lo_rounds)
+    return RansacFAdaptiveResult(F=F_b, inliers=inl_b, num_inliers=torch.sum(inl_b, dim=-1),
+                                 hyps_used=done)
+
+
+def ransac_fundamental_adaptive(
+    generator: Optional[torch.Generator],
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    max_hypotheses: int = 6144,
+    stage_size: int = 512,
+    threshold: float = 1.0,
+    sample_size: int = 8,
+    confidence: float = 0.98,
+    lo_rounds: int = 2,
+    uniforms: Optional[torch.Tensor] = None,
+) -> RansacFAdaptiveResult:
+    """``ransac_fundamental_adaptive_batch`` of one pair; ``uniforms`` is
+    (stages, stage_size, s)."""
+    if mask is None:
+        mask = torch.ones(p1.shape[:1], dtype=torch.bool, device=p1.device)
+    res = ransac_fundamental_adaptive_batch(
+        generator, p1[None], p2[None], mask[None], max_hypotheses=max_hypotheses,
+        stage_size=stage_size, threshold=threshold, sample_size=sample_size,
+        confidence=confidence, lo_rounds=lo_rounds,
+        uniforms=None if uniforms is None else uniforms[None],
+    )
+    return RansacFAdaptiveResult(*(v[0] for v in res))
+
+
+@mm_f32
+def ransac_essential_pose_adaptive(
+    generator: Optional[torch.Generator],
+    p1: torch.Tensor,
+    p2: torch.Tensor,
+    K1: torch.Tensor,
+    K2: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+    max_hypotheses: int = 6144,
+    stage_size: int = 512,
+    threshold: float = 1.0,
+    sample_size: int = 8,
+    confidence: float = 0.98,
+    min_cheirality_frac: float = 1.0,
+    cheirality_subset: int = 1024,
+    uniforms: Optional[torch.Tensor] = None,
+) -> RansacPoseResult:
+    """Adaptive relative-pose RANSAC (ransac.py:443-594): the hypothesis
+    pipeline of :func:`ransac_essential_pose` in stages of ``stage_size``
+    with the adaptive stopping rule, one host read per stage, then the same
+    LO refit and candidate re-selection. The carry keeps the best strict
+    hypothesis (by MSAC) and the best loose one (by cheirality, then
+    inliers); the stopping rule follows the current winner's support.
+
+    ``uniforms`` (stages, stage_size, s) replaces the draws from
+    ``generator``: stage k uses ``uniforms[k]``.
+    """
+    n = p1.shape[0]
+    dev = p1.device
+    if mask is None:
+        mask = torch.ones((n,), dtype=torch.bool, device=dev)
+    maskf = mask.to(p1.dtype)
+    n_valid = torch.sum(mask)
+    thr2 = threshold * threshold
+
+    ns = min(cheirality_subset, n)
+    p1_s, p2_s, mask_s = p1[:ns], p2[:ns], mask[:ns]
+    n_valid_s = torch.sum(mask_s)
+    eps = 1e-6
+    min_strict = (min_cheirality_frac * n_valid_s).to(torch.int32)
+
+    done = torch.zeros((), dtype=torch.int32, device=dev)
+    F_s = torch.eye(3, dtype=p1.dtype, device=dev)
+    inl_s = torch.zeros((n,), dtype=torch.bool, device=dev)
+    msac_s = torch.tensor(float("inf"), dtype=p1.dtype, device=dev)
+    has_s = torch.zeros((), dtype=torch.bool, device=dev)
+    F_l = torch.eye(3, dtype=p1.dtype, device=dev)
+    inl_l = torch.zeros((n,), dtype=torch.bool, device=dev)
+    lsc = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
+    best_cnt = torch.zeros((), dtype=torch.int32, device=dev)
+    stage = 0
+    while bool(_keep_going(best_cnt, done, n_valid, stage_size, max_hypotheses, sample_size,
+                           confidence)):
+        if uniforms is None:
+            u = draw_uniforms(generator, stage_size, sample_size, dev)
+        else:
+            u = uniforms[stage].to(dev)
+        idx = uniforms_to_indices(u, n, mask, sample_size)
+        F = eight_point_fundamental(p1[idx], p2[idx])            # (S, 3, 3)
+        E = essential_from_fundamental(F, K1, K2)
+        R1, R2, t = decompose_essential(E)
+        Rc = torch.stack([R1, R1, R2, R2], dim=1)                # (S, 4, 3, 3)
+        tc = torch.stack([t, -t, t, -t], dim=1)                  # (S, 4, 3)
+        z1, z2 = two_view_depths(Rc, tc, p1_s, p2_s, K1, K2)     # (S, 4, ns)
+        front = (z1 > eps) & (z2 > eps) & mask_s[None, None, :]
+        best_che = torch.max(torch.sum(front, dim=-1), dim=-1).values   # (S,)
+        d = epipolar_distances(F, p1, p2)                        # (S, N)
+        inl = (d < threshold) & mask[None, :]
+        cnt = torch.sum(inl, dim=-1)
+        msac = torch.sum(torch.clamp_max(d * d, thr2) * maskf[None, :], dim=-1)
+        strict = best_che >= min_strict
+        sb = torch.argmax(torch.where(strict, -msac, float("-inf")))
+        loose = best_che * (n + 1) + cnt
+        lb = torch.argmax(loose)
+
+        sb_better = strict[sb] & (msac[sb] < msac_s)
+        F_s = torch.where(sb_better, F[sb], F_s)
+        inl_s = torch.where(sb_better, inl[sb], inl_s)
+        msac_s = torch.where(sb_better, msac[sb], msac_s)
+        has_s = has_s | strict[sb]
+        lscb = loose[lb].to(torch.float32)
+        lb_better = lscb > lsc
+        F_l = torch.where(lb_better, F[lb], F_l)
+        inl_l = torch.where(lb_better, inl[lb], inl_l)
+        lsc = torch.where(lb_better, lscb, lsc)
+        # The stopping rule follows the support of the current winner.
+        zero = torch.zeros_like(best_cnt)
+        best_cnt = torch.maximum(best_cnt, torch.where(
+            sb_better | (strict[sb] & ~has_s), cnt[sb].to(torch.int32), zero))
+        best_cnt = torch.maximum(best_cnt, torch.where(has_s, best_cnt, cnt[lb].to(torch.int32)))
+        done = done + stage_size
+        stage += 1
+
+    F0 = torch.where(has_s, F_s, F_l)
+    inl0 = torch.where(has_s, inl_s, inl_l)
+    d_l = epipolar_distances(F_l[None], p1, p2)[0]
+    msac0 = torch.where(has_s, msac_s, torch.sum(torch.clamp_max(d_l * d_l, thr2) * maskf))
+    F_b, inl_b, _ = _lo_refit(F0, inl0, msac0, p1, p2, mask, threshold, rounds=2)
+    return _pose_from_refit(F_b, inl_b, p1_s, p2_s, mask_s, K1, K2, min_strict)

@@ -1,9 +1,10 @@
 """State that crosses between the JAX package and the port.
 
-The two-view path has no learned weights; what crosses is configuration and
-intermediate state. Nothing here imports JAX: the JAX side's configs arrive
-as ``dataclasses.asdict(...)`` dicts and its arrays as anything
-``np.asarray`` accepts.
+The engine has no learned weights; what crosses is configuration and
+intermediate state: features, matches, pair geometry, bundle-adjustment
+problems, and an engine's map and poses. Nothing here imports JAX: the JAX
+side's configs arrive as ``dataclasses.asdict(...)`` dicts and its arrays
+as anything ``np.asarray`` accepts.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from sfmfromscratch_tpu_torch.config import (
     PipelineConfig,
     RansacConfig,
 )
-from sfmfromscratch_tpu_torch.types import Features, Keypoints, MatchResult
+from sfmfromscratch_tpu_torch.ba.problem import BAProblem
+from sfmfromscratch_tpu_torch.types import Features, Keypoints, MatchResult, PairGeometry
 
 _CONFIGS = (ExtractorConfig, MatcherConfig, RansacConfig, BundleAdjustConfig, PipelineConfig)
 
@@ -63,6 +65,48 @@ def match_result_from_numpy(m, device="cpu") -> MatchResult:
     return MatchResult(indices=_t(m.indices, torch.int32, device),
                        confidence=_t(m.confidence, torch.float32, device),
                        mask=_t(m.mask, torch.bool, device))
+
+
+def pair_geometry_from_numpy(pg, device="cpu") -> PairGeometry:
+    """Any object with the fields of ``PairGeometry`` -> port ``PairGeometry``
+    of tensors."""
+    return PairGeometry(
+        p1=_t(pg.p1, torch.float32, device), p2=_t(pg.p2, torch.float32, device),
+        idx1=_t(pg.idx1, torch.int32, device), idx2=_t(pg.idx2, torch.int32, device),
+        mask=_t(pg.mask, torch.bool, device),
+        K1=_t(pg.K1, torch.float32, device), K2=_t(pg.K2, torch.float32, device),
+    )
+
+
+def ba_problem_from_numpy(p, device="cpu") -> BAProblem:
+    """Any object with the fields of ``BAProblem`` (the JAX one, padded or
+    not) -> port ``BAProblem``; indices become int64."""
+    return BAProblem(
+        cam_params=_t(p.cam_params, torch.float32, device),
+        points=_t(p.points, torch.float32, device),
+        K=_t(p.K, torch.float32, device),
+        obs_cam=_t(p.obs_cam, torch.int64, device),
+        obs_pt=_t(p.obs_pt, torch.int64, device),
+        obs_xy=_t(p.obs_xy, torch.float32, device),
+        obs_w=_t(p.obs_w, torch.float32, device),
+        cam_fixed=_t(p.cam_fixed, torch.bool, device),
+        pt_fixed=None if getattr(p, "pt_fixed", None) is None else _t(p.pt_fixed, torch.bool, device),
+    )
+
+
+def import_engine_state(engine, source) -> None:
+    """Copy a JAX engine's reconstruction (``source``: its ``map``,
+    ``global_poses``, ``global_K`` and ``pair_geometry``) into the port's
+    ``engine``, e.g. to run the port's bundle adjustment on the JAX front's
+    result."""
+    from sfmfromscratch_tpu_torch.pipeline.tracks import MapStore
+
+    engine.map = MapStore.from_arrays(source.map.points(), *source.map.observations())
+    engine.global_poses = [(np.array(rv, np.float64), np.array(t, np.float64))
+                           for rv, t in source.global_poses]
+    engine.global_K = [np.array(K, np.float64) for K in source.global_K]
+    engine.pair_geometry = {k: PairGeometry(*(np.array(v) for v in pg))
+                            for k, pg in source.pair_geometry.items()}
 
 
 def to_numpy(nt: NamedTuple):

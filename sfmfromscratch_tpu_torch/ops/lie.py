@@ -30,7 +30,9 @@ def so3_hat(w: torch.Tensor) -> torch.Tensor:
 def so3_exp(w: torch.Tensor) -> torch.Tensor:
     """Rodrigues formula: (..., 3) axis-angle -> (..., 3, 3) rotation, with
     Taylor expansions of sin(t)/t and (1-cos t)/t^2 near t = 0."""
-    theta2 = torch.sum(w * w, dim=-1)
+    # keepdim: forward-mode AD (torch.func.jacfwd) promotes the tangent of a
+    # 0-dim tensor combined with a Python scalar to float64.
+    theta2 = torch.sum(w * w, dim=-1, keepdim=True)
     small = theta2 < 1e-8
     theta2_safe = torch.where(small, 1.0, theta2)
     theta_safe = torch.sqrt(theta2_safe)
@@ -38,7 +40,7 @@ def so3_exp(w: torch.Tensor) -> torch.Tensor:
     b = torch.where(small, 0.5 - theta2 / 24.0, (1.0 - torch.cos(theta_safe)) / theta2_safe)
     K = so3_hat(w)
     eye = torch.eye(3, dtype=w.dtype, device=w.device).expand(K.shape)
-    return eye + a[..., None, None] * K + b[..., None, None] * (K @ K)
+    return eye + a[..., None] * K + b[..., None] * (K @ K)
 
 
 def so3_log(R: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,8 @@
 """Batched (Root)SIFT descriptors (counterpart of ``sfmfromscratch_tpu/ops/sift.py``).
 
-All keypoints at once: patches are one clamped index gather, the 36-bin
-dominant-orientation histogram and the 4x4x8 cell histograms are one-hot
-weighted batched matmuls. The JAX package has no kernel here (its Pallas SIFT
+All keypoints of an image, or of a stack of images, at once: patches are one
+clamped index gather, the 36-bin dominant-orientation histogram and the
+4x4x8 cell histograms are one-hot weighted batched matmuls. The JAX package has no kernel here (its Pallas SIFT
 kernel lost to XLA and was deleted), so neither does the port.
 
 Reference quirks kept: only the top-left 16x16 of the ``feature_width``
@@ -30,24 +30,27 @@ _DESC_REGION = _GRID * _CELL  # 16
 
 def _extract_patches(field: torch.Tensor, x: torch.Tensor, y: torch.Tensor, fw: int) -> torch.Tensor:
     """Gather (size, size) windows at (y - fw//2 + 1, x - fw//2 + 1) of a
-    zero-padded field, size = max(fw, 16). Start indices follow
-    ``lax.dynamic_slice``: a negative start counts from the end once, then
-    every start is clamped so the window fits."""
+    zero-padded (..., H, W) field for (..., K) keypoints, size = max(fw, 16).
+    Start indices follow ``lax.dynamic_slice``: a negative start counts from
+    the end once, then every start is clamped so the window fits."""
     half = fw // 2
     size = max(fw, _DESC_REGION)
     pad = size
     fpad = F.pad(field, (pad, pad, pad, pad))
-    Hp, Wp = fpad.shape
+    Hp, Wp = fpad.shape[-2:]
+    fpad = fpad.reshape(-1, Hp, Wp)
+    batch_shape = x.shape[:-1]
 
     def start(s, n):
         return torch.where(s < 0, s + n, s).clamp(0, n - size)
 
-    r0 = start(y.long() - half + 1 + pad, Hp)
-    c0 = start(x.long() - half + 1 + pad, Wp)
+    r0 = start(y.long() - half + 1 + pad, Hp).reshape(fpad.shape[0], -1)
+    c0 = start(x.long() - half + 1 + pad, Wp).reshape(fpad.shape[0], -1)
     ar = torch.arange(size, device=field.device)
-    rows = (r0[:, None] + ar[None, :])[:, :, None]     # (K, S, 1)
-    cols = (c0[:, None] + ar[None, :])[:, None, :]     # (K, 1, S)
-    return fpad[rows, cols]                            # (K, S, S)
+    b = torch.arange(fpad.shape[0], device=field.device)[:, None, None, None]
+    rows = (r0[..., None] + ar)[..., :, None]          # (B, K, S, 1)
+    cols = (c0[..., None] + ar)[..., None, :]          # (B, K, 1, S)
+    return fpad[b, rows, cols].reshape(batch_shape + (-1, size, size))
 
 
 def _mask_window(win: torch.Tensor, fw: int) -> torch.Tensor:
@@ -102,7 +105,8 @@ def sift_descriptors(
     feature_width: int,
     rotation_invariant: bool = True,
 ) -> torch.Tensor:
-    """128-D RootSIFT descriptors for all keypoints of one (H, W) image.
+    """128-D RootSIFT descriptors for all keypoints of one (H, W) image, or
+    of each image of a (B, H, W) stack with (B, K) keypoints.
 
     ``rotation_invariant=False`` reproduces NaiveSIFT, ``True``
     ScaleRotInvSIFT. Invalid keypoints yield zero rows.
@@ -111,8 +115,9 @@ def sift_descriptors(
     mag = torch.sqrt(Ix * Ix + Iy * Iy)
     ori = torch.atan2(Iy, Ix)
 
-    mags = _extract_patches(mag, x, y, feature_width)   # (K, S, S)
-    oris = _extract_patches(ori, x, y, feature_width)
+    size = max(feature_width, _DESC_REGION)
+    mags = _extract_patches(mag, x, y, feature_width).reshape(-1, size, size)
+    oris = _extract_patches(ori, x, y, feature_width).reshape(-1, size, size)
     mags = _mask_window(mags, feature_width)
 
     if rotation_invariant:
@@ -125,5 +130,5 @@ def sift_descriptors(
 
     norm = torch.linalg.norm(hist, dim=-1, keepdim=True)
     normalized = torch.where(norm > 0, hist / norm.clamp_min(1e-12), hist)
-    desc = torch.sqrt(normalized)
-    return desc * mask[:, None].to(desc.dtype)
+    desc = torch.sqrt(normalized).reshape(x.shape + (-1,))
+    return desc * mask[..., None].to(desc.dtype)

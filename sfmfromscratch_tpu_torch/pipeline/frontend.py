@@ -49,7 +49,9 @@ def extract_features(image_bw: torch.Tensor, cfg: ExtractorConfig) -> Features:
     """ScaleRotInvSIFT-equivalent: per-pyramid-level Harris + rotation-invariant
     RootSIFT, keypoint coordinates rescaled to level-0 pixels
     (reference ScaleRotInvSIFT.py:89-107). Capacity is
-    ``(k // levels) * levels`` slots."""
+    ``(k // levels) * levels`` slots. A (B, H, W) stack gives Features with a
+    leading image axis, and the Harris kernel runs once per level for the
+    whole stack."""
     levels = build_pyramid(image_bw, cfg.pyramid_level, cfg.pyramid_scale_factor)
     per_level_k = int(cfg.num_interest_points / cfg.pyramid_level)
     min_fw = 3
@@ -72,10 +74,20 @@ def extract_features(image_bw: torch.Tensor, cfg: ExtractorConfig) -> Features:
         descs.append(feats.descriptors)
 
     kps = Keypoints(
-        x=torch.cat(xs), y=torch.cat(ys), score=torch.cat(scores),
-        mask=torch.cat(masks), xf=torch.cat(xfs), yf=torch.cat(yfs),
+        x=torch.cat(xs, -1), y=torch.cat(ys, -1), score=torch.cat(scores, -1),
+        mask=torch.cat(masks, -1), xf=torch.cat(xfs, -1), yf=torch.cat(yfs, -1),
     )
-    return Features(keypoints=kps, descriptors=torch.cat(descs))
+    return Features(keypoints=kps, descriptors=torch.cat(descs, -2))
+
+
+def extract_features_batch(images_bw: torch.Tensor, cfg: ExtractorConfig) -> Features:
+    """(B, H, W) images -> Features with a leading batch axis, each image's
+    features equal to ``extract_features`` of that image alone. The JAX
+    package's chunks and power-of-two buckets exist for XLA's compile cache
+    only; here the whole stack is one batch."""
+    if images_bw.dim() != 3:
+        raise ValueError(f"expected a (B, H, W) stack, got shape {tuple(images_bw.shape)}")
+    return extract_features(images_bw, cfg)
 
 
 def preprocess_image(
@@ -90,6 +102,23 @@ def preprocess_image(
         h, w = arr.shape
         arr = resize_bilinear(arr, (int(h * scale_factor), int(w * scale_factor)))
     return arr
+
+
+def preprocess_image_batch(imgs: torch.Tensor, scale_factor: float) -> torch.Tensor:
+    """Batched ``preprocess_image``: (B, H, W[, 3]) stacked decodes -> (B, h, w)
+    grayscale. uint8 input becomes [0, 1] as ``x * float32(1/255)``, the
+    canonical form of the JAX package (``frontend.py:158-166``), which is
+    bit-identical between host numpy and the device."""
+    if imgs.dtype == torch.uint8:
+        imgs = imgs.to(torch.float32) * np.float32(1.0 / 255.0)
+    else:
+        imgs = imgs.to(torch.float32)
+    if imgs.dim() == 4:
+        imgs = rgb_to_gray(imgs)
+    if scale_factor != 1.0:
+        h, w = imgs.shape[1], imgs.shape[2]
+        imgs = resize_bilinear(imgs, (int(h * scale_factor), int(w * scale_factor)))
+    return imgs
 
 
 @dataclasses.dataclass

@@ -37,3 +37,18 @@ class MatchResult(NamedTuple):
     indices: torch.Tensor      # (M, 2) int32
     confidence: torch.Tensor   # (M,) float32 NN distance ratio
     mask: torch.Tensor         # (M,) bool
+
+
+class PairGeometry(NamedTuple):
+    """Per-image-pair matched pixel coordinates and intrinsics, keeping the
+    keypoint indices that link tracks across pairs. The engine keeps numpy
+    arrays here (its host record); ``interop.pair_geometry_from_numpy``
+    makes tensors."""
+
+    p1: torch.Tensor        # (M, 2) float32 pixel coords in image 1
+    p2: torch.Tensor        # (M, 2) float32 pixel coords in image 2
+    idx1: torch.Tensor      # (M,) int32 keypoint index in image 1
+    idx2: torch.Tensor      # (M,) int32 keypoint index in image 2
+    mask: torch.Tensor      # (M,) bool
+    K1: torch.Tensor        # (3, 3)
+    K2: torch.Tensor        # (3, 3)

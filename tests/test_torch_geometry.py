@@ -251,3 +251,114 @@ def test_ransac_essential_pose_with_jax_uniforms(scene):
                                         _t(K), _t(mask, torch.bool), **kw)
     assert _rot_deg(_np(own.R), scene["R2"]) < 1.0
     assert abs(int(own.num_inliers) - int(ref.num_inliers)) <= 3
+
+
+# --- geometry/ransac.py: fixed-count and adaptive F-RANSAC, adaptive pose --
+
+def _noisy_pairs(outlier_fracs, n=200, noise=0.3, seed=25):
+    """Correspondences of the conftest two-view scene (n points, ``noise`` px)
+    with a share of each lane's matches replaced by outliers; the last rows
+    of every lane are masked out."""
+    from tests.conftest import synthetic_scene
+
+    sc = synthetic_scene(np.random.default_rng(seed), num_points=n, noise=noise)
+    r = np.random.default_rng(seed + 1)
+    p1s, p2s, masks = [], [], []
+    for frac in outlier_fracs:
+        p1 = sc["p1"].astype(np.float32).copy()
+        p2 = sc["p2"].astype(np.float32).copy()
+        out = r.choice(n, int(frac * n), replace=False)
+        p2[out] = r.uniform(0, 480, (len(out), 2)).astype(np.float32)
+        m = np.ones(n, bool)
+        m[-7:] = False
+        p1s.append(p1)
+        p2s.append(p2)
+        masks.append(m)
+    return np.stack(p1s), np.stack(p2s), np.stack(masks), sc
+
+
+def _jax_stage_uniforms(key, stages, stage_size, s):
+    """The uniforms the JAX adaptive while-loop draws for one lane: each
+    stage splits the carried key and draws from the second half."""
+    out = []
+    for _ in range(stages):
+        key, sub = jax.random.split(key)
+        out.append(_np(jax.random.uniform(sub, (stage_size, s))))
+    return np.stack(out)
+
+
+def test_ransac_fundamental_batch_with_jax_uniforms():
+    """Fixed-count F-RANSAC of 3 pairs on the JAX-drawn hypotheses: the same
+    winner per pair, so identical inlier masks and counts."""
+    p1, p2, m, _ = _noisy_pairs([0.1, 0.3, 0.5])
+    keys = jax.random.split(jax.random.key(11), 3)
+    ref = jransac.ransac_fundamental_batch(keys, jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(m),
+                                           num_hypotheses=256, threshold=1.0)
+    u = np.stack([_np(jax.random.uniform(k, (256, 8))) for k in keys])
+    got = transac.ransac_fundamental_batch(None, _t(p1), _t(p2), _t(m, torch.bool),
+                                           num_hypotheses=256, threshold=1.0, uniforms=_t(u))
+    np.testing.assert_array_equal(_np(got.inliers), _np(ref.inliers))
+    np.testing.assert_array_equal(_np(got.num_inliers), _np(ref.num_inliers))
+    np.testing.assert_allclose(_unit_frobenius(_np(got.F)), _unit_frobenius(_np(ref.F)), atol=1e-3)
+    one = transac.ransac_fundamental(None, _t(p1[1]), _t(p2[1]), _t(m[1], torch.bool),
+                                     num_hypotheses=256, uniforms=_t(u[1]))
+    np.testing.assert_array_equal(_np(one.inliers), _np(ref.inliers[1]))
+
+
+def test_ransac_fundamental_adaptive_batch_with_jax_uniforms():
+    """Adaptive F-RANSAC of 4 pairs with 5-75% outliers, each lane on the
+    uniforms its JAX key draws stage by stage: every lane stops after the
+    same number of hypotheses (``hyps_used``), and after the LO refit the
+    inlier masks are identical. The lanes stop at different stages, so the
+    per-lane stopping and freezing are exercised; the 75% lane also meets
+    the futility rule's region."""
+    p1, p2, m, _ = _noisy_pairs([0.05, 0.3, 0.55, 0.75])
+    P, S, cap = 4, 64, 1024
+    keys = jax.random.split(jax.random.key(12), P)
+    kw = dict(max_hypotheses=cap, stage_size=S, threshold=1.0, confidence=0.98)
+    ref = jransac.ransac_fundamental_adaptive_batch(
+        keys, jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(m), **kw)
+    u = np.stack([_jax_stage_uniforms(k, cap // S, S, 8) for k in keys])
+    got = transac.ransac_fundamental_adaptive_batch(
+        None, _t(p1), _t(p2), _t(m, torch.bool), uniforms=_t(u), **kw)
+    used = _np(ref.hyps_used)
+    np.testing.assert_array_equal(_np(got.hyps_used), used)
+    assert len(set(used.tolist())) >= 2, used          # lanes stop at different stages
+    np.testing.assert_array_equal(_np(got.inliers), _np(ref.inliers))
+    np.testing.assert_array_equal(_np(got.num_inliers), _np(ref.num_inliers))
+    one = transac.ransac_fundamental_adaptive(None, _t(p1[2]), _t(p2[2]), _t(m[2], torch.bool),
+                                              uniforms=_t(u[2]), **kw)
+    assert int(one.hyps_used) == int(used[2])
+    np.testing.assert_array_equal(_np(one.inliers), _np(ref.inliers[2]))
+
+
+@pytest.mark.parametrize("frac", [0.2, 0.4])
+def test_ransac_essential_pose_adaptive_with_jax_uniforms(frac):
+    """Adaptive relative-pose RANSAC on the JAX-drawn stage uniforms: the
+    same inlier set and strictness; the pose comes from the LO refit's
+    float32 SVD, so rotation within 0.1 deg and translation direction within
+    2e-3, as for the fixed-count program."""
+    p1, p2, m, sc = _noisy_pairs([frac])
+    K, = _f32(sc["K"])
+    key = jax.random.key(13)
+    kw = dict(max_hypotheses=1024, stage_size=64, threshold=1.0, min_cheirality_frac=0.75)
+    ref = jransac.ransac_essential_pose_adaptive(
+        key, jnp.asarray(p1[0]), jnp.asarray(p2[0]), jnp.asarray(K), jnp.asarray(K),
+        jnp.asarray(m[0]), **kw)
+    u = _jax_stage_uniforms(key, 1024 // 64, 64, 8)
+    got = transac.ransac_essential_pose_adaptive(
+        None, _t(p1[0]), _t(p2[0]), _t(K), _t(K), _t(m[0], torch.bool), uniforms=_t(u), **kw)
+    np.testing.assert_array_equal(_np(got.inliers), _np(ref.inliers))
+    assert bool(got.cheirality_ok) == bool(ref.cheirality_ok)
+    assert _rot_deg(_np(got.R), _np(ref.R)) < 0.1
+    np.testing.assert_allclose(_np(got.t), _np(ref.t), atol=2e-3)
+    assert _rot_deg(_np(got.R), sc["R2"]) < 1.0
+
+
+def test_hypotheses_needed_matches_jax():
+    """The stopping rule in float32, across inlier ratios and the clamps."""
+    cnt = np.array([0, 1, 12, 40, 99, 150, 199, 200], np.int32)
+    nv = np.int32(200)
+    ref = _np(jransac._hypotheses_needed(jnp.asarray(cnt), jnp.asarray(nv), 8, 0.98))
+    got = _np(transac._hypotheses_needed(_t(cnt), _t(nv), 8, 0.98))
+    np.testing.assert_allclose(got, ref, rtol=1e-6)

@@ -400,3 +400,114 @@ def test_so3_matches_jax():
     inside[:10] = False
     np.testing.assert_allclose(wt[inside], w[inside], atol=1e-4)
     assert tlie.so3_exp(_t(w[:2].reshape(2, 1, 3))).shape == (2, 1, 3, 3)
+
+
+def test_small_3x3_closed_forms_match_jax():
+    """Adjugate inverse, closed-form Cholesky, SPD solve and SPD inverse of
+    well-conditioned SPD matrices (and the adjugate of general ones): 1e-5
+    relative to each result's scale."""
+    r = np.random.default_rng(19)
+    A = r.standard_normal((64, 3, 3)).astype(np.float32)
+    M = (A @ A.transpose(0, 2, 1) + 0.5 * np.eye(3)).astype(np.float32)
+    g = r.standard_normal((64, 3)).astype(np.float32)
+    for name, args in (("inv3", (A,)), ("inv3", (M,)), ("chol3", (M,)),
+                       ("solve3_spd", (M, g)), ("inv3_spd", (M,))):
+        got = _np(getattr(tsvd, name)(*(_t(a) for a in args)))
+        ref = _np(getattr(jsvd, name)(*(jnp.asarray(a) for a in args)))
+        scale = np.abs(ref).reshape(64, -1).max(-1).reshape((64,) + (1,) * (ref.ndim - 1))
+        np.testing.assert_allclose(got / scale, ref / scale, atol=1e-5, err_msg=name)
+    np.testing.assert_allclose(_np(tsvd.inv3_spd(_t(M))) @ M, np.broadcast_to(np.eye(3), M.shape),
+                               atol=1e-4)
+    L = _np(tsvd.chol3(_t(M), eps=0.1))
+    np.testing.assert_allclose(L @ L.transpose(0, 2, 1), M + 0.1 * np.eye(3), rtol=1e-5, atol=1e-5)
+
+
+# --- pipeline/frontend.py: the engine's batched frontend -------------------
+
+def test_preprocess_image_batch_matches_jax():
+    """uint8 stacks: grayscale input converts bit-identically
+    (``x * float32(1/255)`` on both sides); RGB goes through the weighted sum
+    (1e-6, as ``rgb_to_gray``) and a 0.5 rescale through the antialiased
+    resize (1e-5, as ``resize_bilinear``)."""
+    from sfmfromscratch_tpu.pipeline import frontend as jfrontend
+    from sfmfromscratch_tpu_torch.pipeline import frontend as tfrontend
+
+    r = np.random.default_rng(41)
+    gray = r.integers(0, 256, (3, 40, 52), dtype=np.uint8)
+    rgb = r.integers(0, 256, (3, 40, 52, 3), dtype=np.uint8)
+    got = _np(tfrontend.preprocess_image_batch(_t(gray), 1.0))
+    ref = _np(jfrontend.preprocess_image_batch(jnp.asarray(gray), 1.0))
+    assert got.dtype == np.float32
+    np.testing.assert_array_equal(got, ref)
+    for imgs, sf, atol in ((rgb, 1.0, 1e-6), (rgb, 0.5, 1e-5), (gray, 0.5, 1e-5)):
+        got = _np(tfrontend.preprocess_image_batch(_t(imgs), sf))
+        ref = _np(jfrontend.preprocess_image_batch(jnp.asarray(imgs), sf))
+        assert got.shape == ref.shape
+        np.testing.assert_allclose(got, ref, atol=atol)
+
+
+def test_extract_features_batch_matches_jax():
+    """Three small images as one batch (one Harris launch per level on the
+    card): the same keypoints per image as the JAX batch, and the same
+    features as the port's single-image extraction; descriptors of shared
+    keypoints within 1e-4 on at least 97% of the rows (the ulp orientation
+    bins of ``test_sift_descriptors_match_jax``)."""
+    from sfmfromscratch_tpu import config as jconfig
+    from sfmfromscratch_tpu.pipeline import frontend as jfrontend
+    from sfmfromscratch_tpu_torch import config as tconfig
+    from sfmfromscratch_tpu_torch.pipeline import frontend as tfrontend
+
+    kw = dict(num_interest_points=200, ksize=3, gaussian_size=7, sigma=3.0, alpha=0.05,
+              feature_width=16, pyramid_level=2, pyramid_scale_factor=1.2)
+    imgs = np.stack([_img((80, 104), s) for s in (42, 43, 44)])
+    got = tfrontend.extract_features_batch(_t(imgs), tconfig.ExtractorConfig(**kw))
+    ref = jfrontend.extract_features_batch(jnp.asarray(imgs), jconfig.ExtractorConfig(**kw),
+                                           serial=True)
+    assert got.descriptors.shape == ref.descriptors.shape == (3, 200, 128)
+    for b in range(3):
+        gk, rk = got.keypoints, ref.keypoints
+        same = ((_np(gk.x[b]) == _np(rk.x[b])) & (_np(gk.y[b]) == _np(rk.y[b]))
+                & _np(gk.mask[b]) & _np(rk.mask[b]))
+        np.testing.assert_array_equal(_np(gk.mask[b]), _np(rk.mask[b]))
+        assert same.sum() == _np(rk.mask[b]).sum() > 50
+        close = np.all(np.abs(_np(got.descriptors[b]) - _np(ref.descriptors[b])) <= 1e-4, axis=1)
+        assert close[same].mean() >= 0.97, close[same].mean()
+        one = tfrontend.extract_features(_t(imgs[b]), tconfig.ExtractorConfig(**kw))
+        np.testing.assert_array_equal(_np(one.keypoints.x), _np(gk.x[b]))
+        np.testing.assert_allclose(_np(one.descriptors), _np(got.descriptors[b]), atol=1e-6)
+    with pytest.raises(ValueError):
+        tfrontend.extract_features_batch(_t(imgs[0]), tconfig.ExtractorConfig(**kw))
+
+
+def test_match_pairs_batch_matches_jax(monkeypatch):
+    """Three pairs of four images in one call, JAX through its Pallas
+    matcher in interpret mode: identical match indices and masks, and the
+    gathered subpixel coordinates equal."""
+    import functools
+
+    from sfmfromscratch_tpu.ops.pallas import match_kernel as jMK
+
+    monkeypatch.setattr(jMK, "match_top2_fused",
+                        functools.partial(jMK.match_top2_fused, interpret=True))
+    r = np.random.default_rng(45)
+    C, Kc = 4, 120
+    base = _rootsift_like(r, Kc)
+    desc = np.stack([np.sqrt(np.abs(base ** 2 + r.normal(0, 0.002 * (c + 1), base.shape)))
+                     for c in range(C)]).astype(np.float32)
+    desc /= np.linalg.norm(desc, axis=-1, keepdims=True)
+    kp_mask = r.uniform(size=(C, Kc)) > 0.1
+    xf = r.uniform(0, 200, (C, Kc)).astype(np.float32)
+    yf = r.uniform(0, 150, (C, Kc)).astype(np.float32)
+    pi, pj = np.array([0, 1, 2], np.int32), np.array([1, 2, 3], np.int32)
+    kw = dict(ratio_threshold=0.85, max_matches=100)
+    res_t, p1_t, p2_t = tmatcher.match_pairs_batch(_t(desc), _t(kp_mask), _t(xf), _t(yf),
+                                                   _t(pi), _t(pj), **kw)
+    res_j, p1_j, p2_j = jmatcher.match_pairs_batch(
+        jnp.asarray(desc), jnp.asarray(kp_mask), jnp.asarray(xf), jnp.asarray(yf),
+        jnp.asarray(pi), jnp.asarray(pj), use_pallas=True, **kw)
+    np.testing.assert_array_equal(_np(res_t.mask), _np(res_j.mask))
+    np.testing.assert_array_equal(_np(res_t.indices), _np(res_j.indices))
+    assert _np(res_t.mask).sum(-1).min() > 20
+    np.testing.assert_array_equal(_np(p1_t), _np(p1_j))
+    np.testing.assert_array_equal(_np(p2_t), _np(p2_j))
+    np.testing.assert_allclose(_np(res_t.confidence), _np(res_j.confidence), atol=1e-5)

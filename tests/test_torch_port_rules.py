@@ -56,7 +56,31 @@ def test_port_imports_no_jax_in_a_fresh_process():
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN []" in r.stdout, r.stdout
-    assert int(r.stdout.split("LOADED")[1].split()[0]) >= 20
+    assert int(r.stdout.split("LOADED")[1].split()[0]) >= 30
+
+
+# The modules of the engine slice, at the JAX package's paths.
+_SLICE_2 = ("ops/smallsvd.py", "types.py", "pipeline/tracks.py", "utils/metrics.py",
+            "pipeline/frontend.py", "ops/matcher.py", "geometry/ransac.py", "geometry/p3p.py",
+            "geometry/pnp.py", "ba/problem.py", "ba/schur.py", "ba/lm_core.py", "ba/lm.py",
+            "pipeline/incremental.py", "interop.py")
+
+
+@pytest.mark.parametrize("rel", _SLICE_2)
+def test_engine_slice_modules_import_no_jax(rel):
+    """Each module of the engine slice exists beside its JAX twin (``interop``
+    is the port's own), and importing it alone in a fresh interpreter loads
+    neither ``jax`` nor the JAX package."""
+    assert rel == "interop.py" or (ROOT / "sfmfromscratch_tpu" / rel).exists()
+    assert (PORT / rel).exists()
+    mod = "sfmfromscratch_tpu_torch." + rel[:-3].replace("/", ".")
+    code = (f"import sys, {mod}\n"
+            f"print('FORBIDDEN', sorted(n for n in sys.modules if n.split('.')[0] in {_FORBIDDEN!r}))\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN []" in r.stdout, r.stdout
 
 
 def test_port_sources_name_no_jax():
@@ -93,6 +117,63 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     fr = FeatureRunner.run(img, img, ExtractorConfig(num_interest_points=20, pyramid_level=1),
                            scale_factor=1.0, device="cpu")
     assert fr.image1_bw.device.type == "cpu"
+
+
+def test_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
+    """``SfmEngine(device=None)`` asks for the card and raises without one,
+    before it reads any image."""
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SfmEngine(str(tmp_path), 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SfmEngine(str(tmp_path), 3, device="cuda", auto_run=False)
+    eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False)
+    assert eng.device == torch.device("cpu")
+
+
+@pytest.mark.parametrize("option", [
+    dict(assoc_mode="distance"), dict(chain_mode="host"), dict(pair_window=2),
+    dict(local_ba_every=3), dict(checkpoint_every=2), dict(checkpoint_path="c.npz"),
+    dict(mesh=object()), dict(feature_extractor=lambda im: None), dict(pair_cache_dir="cache"),
+    dict(refine_focal=True), dict(chain_refresh="averaging"), dict(on_pose_failure="recover"),
+])
+def test_engine_options_off_the_default_path_raise(option, tmp_path):
+    """Every option of the JAX engine that the port does not run raises
+    ``NotImplementedError``; none is ignored."""
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    with pytest.raises(NotImplementedError):
+        SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
+
+
+@pytest.mark.parametrize("ransac", [dict(pnp_solver="dlt"), dict(adaptive=False)])
+def test_engine_config_off_the_default_path_raises(ransac, tmp_path):
+    """The DLT PnP generator and the fixed-count RANSAC stages are not run
+    by the port's engine: asking for them raises."""
+    import dataclasses
+
+    from sfmfromscratch_tpu_torch.config import PipelineConfig, RansacConfig
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    cfg = dataclasses.replace(PipelineConfig(), ransac=RansacConfig(**ransac))
+    with pytest.raises(NotImplementedError):
+        SfmEngine(str(tmp_path), 3, config=cfg, device="cpu", auto_run=False)
+    with pytest.raises(NotImplementedError):
+        SfmEngine(str(tmp_path), 2, device="cpu", auto_run=False)
+
+
+def test_engine_images_of_two_sizes_raise(tmp_path):
+    from PIL import Image
+
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    for i, hw in enumerate([(40, 52), (40, 52), (44, 52)], start=1):
+        Image.fromarray(np.zeros(hw + (3,), np.uint8)).save(tmp_path / f"{i}.jpg")
+    eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False)
+    with pytest.raises(NotImplementedError):
+        eng.run()
 
 
 def test_wrappers_dispatch_by_device():
