@@ -1,18 +1,25 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only-kernels]
 
 Phases, each printing JSON lines:
 
 1. device  — card name, ``nvidia-smi`` name and power limit, kernel build time
              (every ``csrc/*.cu`` built from the checkout, one nvcc each, in
-             parallel).
+             parallel) and nvcc's register, shared-memory and spill report.
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the engine's shapes (Harris B=10 per pyramid level, matcher
-             B=9 pairs), the two-view shapes and the extra regimes below,
-             timed warm with CUDA events beside its bound, the plain version
-             and one library call.
+             B=9 pairs, f32 and bf16 modes), the two-view shapes, the extra
+             regimes below and an exact-tie case, beside its bound, the plain
+             version and one library call. Three times per kernel and shape:
+             ``device_ms``, the kernel's own time from ``torch.profiler``
+             (its CUDA activity per call over a warm window; the number the
+             kernel line reports as ``ms``); ``graph_ms``, a CUDA-graph
+             replay of the bare launches, as a cross-check; and ``call_ms``,
+             back-to-back wrapper calls between CUDA events, the time a
+             caller pays per call (host path included). ``--only-kernels``
+             stops after this phase and prints no result line.
 3. slice   — ``reconstruct_two_view`` on views 1 and 2 of the bench scene at
              the bench settings, through both kernels (their launch counts are
              zeroed just before the timed run and read just after); the pose is
@@ -43,12 +50,13 @@ import traceback
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks (NVIDIA data sheets, dense, without sparsity): memory bytes/s
-# and FP32 (non-tensor) flop/s, by the variant the card's name reports.
+# Published peaks (NVIDIA data sheets, dense, without sparsity), by the
+# variant the card's name reports: memory bytes/s, FP32 (non-tensor) flop/s,
+# and bf16 tensor-core flop/s (half the data sheets' rates with sparsity).
 _PEAKS = {
-    "PCIe": (2.0e12, 51.2e12),
-    "NVL": (3.9e12, 60.0e12),
-    "SXM": (3.35e12, 67.0e12),
+    "PCIe": (2.0e12, 51.2e12, 756.0e12),
+    "NVL": (3.9e12, 60.0e12, 835.0e12),
+    "SXM": (3.35e12, 67.0e12, 989.0e12),
 }
 
 # Pins from the JAX package's reconstruct_two_view on the CPU on the same
@@ -96,6 +104,13 @@ HARRIS_TOL = 1e-5      # max |kernel - plain| <= HARRIS_TOL * max |plain R|
 MATCH_RTOL = 1e-4      # squared distances, relative
 MATCH_ATOL = 1e-6
 MATCH_TIE = 1e-5       # index may differ only where (second - best) <= MATCH_TIE * |best|
+# Matcher shapes: the engine's 9 pairs, the two-view's pair, a 6000-row
+# database; each in f32 and in the bf16 mode (bf16=True).
+MATCH_CASES = [(9, 2499, 2499), (1, 2499, 2499), (1, 2499, 6000)]
+MATCH_MODES = (False, True)
+# Checked only: a one-row database (second best is the sentinel), ragged
+# tiles on both sides, and widths the wrapper pads to a multiple of 32.
+MATCH_EDGE_CASES = [(2, 37, 1, 100), (3, 130, 129, 64), (1, 5, 300, 40)]
 
 # The slice on the card against the port's own CPU run on the same images.
 # Response maps agree to ~1e-6 of their range, so keypoint sets agree all but
@@ -116,11 +131,10 @@ def _print(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def _peaks(name: str):
-    for key, val in _PEAKS.items():
-        if key in name:
-            return key, val
-    return "SXM", _PEAKS["SXM"]
+def _peaks(name: str) -> dict:
+    variant = next((key for key in _PEAKS if key in name), "SXM")
+    bw, fp32, bf16 = _PEAKS[variant]
+    return {"variant": variant, "bytes_per_s": bw, "fp32_flops": fp32, "bf16_flops": bf16}
 
 
 def _nvidia_smi() -> str:
@@ -132,7 +146,10 @@ def _nvidia_smi() -> str:
 
 
 def _cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
-    """Mean device time of ``fn`` in ms over ``reps`` warm calls (CUDA events)."""
+    """Mean time of one call of ``fn`` in ms over ``reps`` warm back-to-back
+    calls, between two CUDA events. Where the host enqueues more slowly than
+    the device runs, this is the host's time per call: the ``call_ms`` of a
+    wrapper, as the engine pays it."""
     import torch
 
     for _ in range(warm):
@@ -145,6 +162,77 @@ def _cuda_ms(fn, reps: int = 20, warm: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def _profiled_ms(fn, kernels, reps: int = 20, warm: int = 3):
+    """The kernel's own device time per call of ``fn`` in ms: the CUDA
+    activity of every kernel whose name contains one of ``kernels``, traced by
+    ``torch.profiler`` over ``reps`` warm calls, summed and divided by
+    ``reps``. Returns (ms or None, kernel activities seen)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total_us, seen = 0.0, 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA and any(k in e.name for k in kernels):
+            total_us += e.time_range.elapsed_us()
+            seen += 1
+    return (total_us / reps * 1e-3 if seen else None), seen
+
+
+def _graph_ms(fn, reps: int = 20, replays: int = 5):
+    """Device time per call of ``fn`` in ms from replays of one CUDA graph
+    that holds ``reps`` calls, between two CUDA events: no host time between
+    launches, so it cross-checks ``_profiled_ms`` (it also holds any small
+    kernels ``fn`` launches besides the one under test). Returns (ms or None,
+    error text or None)."""
+    import torch
+
+    try:
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream().wait_stream(side)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            for _ in range(reps):
+                fn()
+        graph.replay()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(replays):
+            graph.replay()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / (reps * replays), None
+    except Exception as e:  # noqa: BLE001 - reported beside the other sources
+        torch.cuda.synchronize()
+        return None, f"{type(e).__name__}: {e}"
+
+
+def _kernel_times(wrapper, launch, kernels) -> dict:
+    """``device_ms`` (profiler: the named kernels' time per wrapper call),
+    ``graph_ms`` (CUDA-graph replay of ``launch``, the bare kernel launch) and
+    ``call_ms`` (``_cuda_ms`` of ``wrapper``, the entry point the engine
+    calls)."""
+    device_ms, seen = _profiled_ms(wrapper, kernels)
+    graph_ms, graph_error = _graph_ms(launch)
+    out = dict(device_ms=device_ms, kernel_activities=seen, graph_ms=graph_ms,
+               call_ms=_cuda_ms(wrapper))
+    if graph_error:
+        out["graph_error"] = graph_error
+    return out
 
 
 def _render_module():
@@ -241,17 +329,18 @@ ENGINE_LEVELS = [(360, 480), (327, 436), (297, 396)]   # 3 levels x1.1 of 360x48
 
 def harris_phase(dev, peaks):
     """Harris kernel vs plain at the engine's pyramid levels (B=10), the
-    two-view's (B=1) and the 960x1280 regime; returns the numbers of the
-    engine's three launches."""
+    two-view's (B=1), the 960x1280 regime and a width off the 16-byte path;
+    returns the numbers of the engine's three launches."""
     import torch
 
     from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
 
     G, sigma, alpha = 7, 6.0, 0.05
-    bw, fl = peaks
+    bw, fl = peaks["bytes_per_s"], peaks["fp32_flops"]
     gen = torch.Generator(device=dev).manual_seed(0)
+    # The last case's width is not a multiple of 4: the kernel's scalar path.
     cases = [(10, H, W) for H, W in ENGINE_LEVELS] + [(1, H, W) for H, W in ENGINE_LEVELS] \
-        + [(1, 960, 1280)]
+        + [(1, 960, 1280), (2, 45, 61)]
     rows = []
     for B, H, W in cases:
         img = torch.rand((B, H, W), generator=gen, device=dev)
@@ -263,93 +352,166 @@ def harris_phase(dev, peaks):
         _check(bool(torch.isfinite(got).all()), f"harris {B}x{H}x{W}: non-finite")
         _check(err <= HARRIS_TOL * scale, f"harris {B}x{H}x{W}: max err {err} > {HARRIS_TOL} * {scale}")
         px = B * H * W
-        rows.append(dict(
-            shape=[B, H, W], max_abs_err=err, max_abs_R=scale,
-            ms=_cuda_ms(lambda: HK.harris_response_fused(img, G, sigma, alpha)),
-            plain_ms=_cuda_ms(lambda: HK.harris_response(img, G, sigma, alpha), reps=5),
-            bound_ms=max(8.0 * px / bw, px * (16 + 12 * G) / fl) * 1e3,
-        ))
+        row = dict(shape=[B, H, W], max_abs_err=err, max_abs_R=scale)
+        row.update(_kernel_times(lambda: HK.harris_response_fused(img, G, sigma, alpha),
+                                 lambda: HK._launch(img, G, sigma, alpha), ("harris_kernel",)))
+        row.update(plain_ms=_cuda_ms(lambda: HK.harris_response(img, G, sigma, alpha), reps=5),
+                   bound_ms=max(8.0 * px / bw, px * (16 + 12 * G) / fl) * 1e3)
+        rows.append(row)
     _print({"phase": "harris", "tol_rel": HARRIS_TOL, "cases": rows})
 
-    engine = rows[:3]
-    two_view_ms = 2 * sum(r["ms"] for r in rows[3:6])
+    engine, two_view = rows[:3], rows[3:6]
     return dict(
         name="harris_response_fused", route="cuda",
         source="sfmfromscratch_tpu_torch/csrc/harris.cu",
         replaces="sfmfromscratch_tpu/ops/pallas/harris_kernel.py:68 (_harris_kernel), "
                  "sfmfromscratch_tpu/ops/pallas/harris_kernel.py:150 (_harris_tiled_kernel)",
         max_abs_err=max(r["max_abs_err"] for r in engine),
-        ms=sum(r["ms"] for r in engine), plain_ms=sum(r["plain_ms"] for r in engine),
-        bound_ms=sum(r["bound_ms"] for r in engine), bound_by="bytes", library_ms=None,
+        ms=_sum(engine, "device_ms"), device_ms=_sum(engine, "device_ms"),
+        graph_ms=_sum(engine, "graph_ms"), call_ms=_sum(engine, "call_ms"),
+        plain_ms=_sum(engine, "plain_ms"), bound_ms=_sum(engine, "bound_ms"),
+        bound_by="bytes", library_ms=None,
         per="engine run: 3 launches, B=10 at 360x480, 327x436, 297x396",
-        two_view_ms=two_view_ms,
+        two_view=dict(per="2 images x 3 launches, B=1",
+                      device_ms=2 * _sum(two_view, "device_ms"),
+                      call_ms=2 * _sum(two_view, "call_ms"),
+                      bound_ms=2 * _sum(two_view, "bound_ms"),
+                      plain_ms=2 * _sum(two_view, "plain_ms")),
     )
 
 
+def _sum(rows, key):
+    vals = [r[key] for r in rows]
+    return None if any(v is None for v in vals) else sum(vals)
+
+
+def _descriptors(gen, dev, B, n, D=128):
+    """RootSIFT-like descriptors: non-negative rows of unit L2 norm."""
+    import torch
+
+    d = torch.rand((B, n, D), generator=gen, device=dev) ** 2
+    return torch.sqrt(d / d.sum(-1, keepdim=True))
+
+
+def _match_check(label, MK, d1, d2, mask2, kw):
+    """Kernel against its plain version (same mode) on the same inputs:
+    distances to MATCH_RTOL/MATCH_ATOL, indices equal off near-ties."""
+    import torch
+
+    n1sq, n2sq = MK._norms(d1, d2, mask2)
+    k1, k2, ki = MK.match_top2_fused(d1, d2, mask2, **kw)
+    p1r, p2r, pi = MK.match_top2_plain(d1, d2, n2sq, **kw)
+    p1 = torch.clamp_min(p1r + n1sq, 0.0)
+    p2 = torch.clamp_min(p2r + n1sq, 0.0)
+    torch.cuda.synchronize()
+    _check(bool(torch.isfinite(k1).all() and torch.isfinite(k2).all()), f"{label}: non-finite")
+    _check(bool(torch.allclose(k1, p1, rtol=MATCH_RTOL, atol=MATCH_ATOL)), f"{label}: dist1")
+    _check(bool(torch.allclose(k2, p2, rtol=MATCH_RTOL, atol=MATCH_ATOL)), f"{label}: dist2")
+    differ = ki != pi
+    near_tie = (p2r - p1r) <= MATCH_TIE * p1r.abs()
+    n_differ, n_unexcused = int(differ.sum()), int((differ & ~near_tie).sum())
+    _check(n_unexcused == 0, f"{label}: {n_unexcused} index disagreements off ties")
+    err = float(torch.maximum((k1 - p1).abs().max(), (k2 - p2).abs().max()))
+    return dict(max_abs_err=err, index_disagreements=n_differ,
+                index_disagreements_off_ties=n_unexcused), (k1, k2, ki), n2sq
+
+
+def _match_tie_case(dev, MK, kw):
+    """Exact ties on the card: each query equals database rows placed in the
+    same tile and in other tiles and segments of a 6144-row database; the
+    nearest index must be the lowest duplicate, with dist2 == dist1."""
+    import torch
+
+    n2 = 6144
+    d2 = _descriptors(torch.Generator(device=dev).manual_seed(2), dev, 1, n2)
+    q = torch.tensor([5, 100, 2100, 4400, 6000], device=dev)
+    dups = [q, q + 3, (q + 1000) % n2, (q + 3100) % n2]
+    for j in dups[1:]:
+        d2[0, j] = d2[0, q]
+    d1 = d2[:, q].clone()
+    label = f"match tie {'bf16' if kw else 'f32'}"
+    row, (k1, k2, ki), _ = _match_check(label, MK, d1, d2, None, kw)
+    want = torch.stack(dups).min(0).values.int()
+    _check(bool(torch.equal(ki[0], want)), f"{label}: nearest {ki[0].tolist()} != lowest {want.tolist()}")
+    _check(bool(torch.equal(k1, k2)), f"{label}: dist2 != dist1 on exact ties")
+    row.update(shape=[1, len(q), n2, 128], nearest=ki[0].tolist())
+    return row
+
+
 def match_phase(dev, peaks):
-    """Matcher kernel vs plain at the engine's shape (9 pairs), the
-    two-view's (one pair) and a 6000-row database; returns the numbers of the
-    engine's launch."""
+    """Matcher kernel vs plain, f32 and bf16 modes, at the engine's shape (9
+    pairs), the two-view's (one pair), a 6000-row database and an exact-tie
+    case; returns the numbers of the engine's launch for each mode."""
     import torch
 
     from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
     from sfmfromscratch_tpu_torch.utils.precision import f32_precision
 
-    bw, fl = peaks
-    gen = torch.Generator(device=dev).manual_seed(1)
+    bw = peaks["bytes_per_s"]
     D = 128
-    cases = [(9, 2499, 2499), (1, 2499, 2499), (1, 2499, 6000)]
-    rows, main = [], None
-    for B, n1, n2 in cases:
-        # RootSIFT-like descriptors: non-negative, unit L2 norm.
-        d1 = torch.rand((B, n1, D), generator=gen, device=dev) ** 2
-        d2 = torch.rand((B, n2, D), generator=gen, device=dev) ** 2
-        d1 = torch.sqrt(d1 / d1.sum(-1, keepdim=True))
-        d2 = torch.sqrt(d2 / d2.sum(-1, keepdim=True))
-        mask2 = torch.rand((B, n2), generator=gen, device=dev) > 0.1
-        n1sq, n2sq = MK._norms(d1, d2, mask2)
-        k1, k2, ki = MK.match_top2_fused(d1, d2, mask2)
-        p1r, p2r, pi = MK.match_top2_plain(d1, d2, n2sq)
-        p1 = torch.clamp_min(p1r + n1sq, 0.0)
-        p2 = torch.clamp_min(p2r + n1sq, 0.0)
-        torch.cuda.synchronize()
-        _check(bool(torch.allclose(k1, p1, rtol=MATCH_RTOL, atol=MATCH_ATOL)), f"match {B}x{n1}x{n2}: dist1")
-        _check(bool(torch.allclose(k2, p2, rtol=MATCH_RTOL, atol=MATCH_ATOL)), f"match {B}x{n1}x{n2}: dist2")
-        differ = ki != pi
-        near_tie = (p2r - p1r) <= MATCH_TIE * p1r.abs()
-        n_differ, n_unexcused = int(differ.sum()), int((differ & ~near_tie).sum())
-        _check(n_unexcused == 0, f"match {B}x{n1}x{n2}: {n_unexcused} index disagreements off ties")
-        err = float(torch.maximum((k1 - p1).abs().max(), (k2 - p2).abs().max()))
-        flops = 2.0 * B * n1 * n2 * D
-        nbytes = 4.0 * (B * n1 * D + B * n2 * D + B * n2) + 12.0 * B * n1
+    kernels = []
+    for bf16 in MATCH_MODES:
+        kw = {"bf16": True} if bf16 else {}
+        fl = peaks["bf16_flops"] if bf16 else peaks["fp32_flops"]
+        gen = torch.Generator(device=dev).manual_seed(1)
+        rows = []
+        for B, n1, n2 in MATCH_CASES:
+            d1 = _descriptors(gen, dev, B, n1)
+            d2 = _descriptors(gen, dev, B, n2)
+            mask2 = torch.rand((B, n2), generator=gen, device=dev) > 0.1
+            label = f"match {'bf16' if bf16 else 'f32'} {B}x{n1}x{n2}"
+            row, _, n2sq = _match_check(label, MK, d1, d2, mask2, kw)
+            flops = 2.0 * B * n1 * n2 * D
+            nbytes = 4.0 * (B * n1 * D + B * n2 * D + B * n2) + 12.0 * B * n1
 
-        def library():
-            with f32_precision():
-                return torch.cdist(d1, d2).topk(2, dim=-1, largest=False)
+            if bf16:
+                def library():
+                    # The product is rounded to bf16 here, unlike the kernel's f32 sum.
+                    cross = torch.bmm(d1.bfloat16(), d2.bfloat16().transpose(1, 2))
+                    return (n2sq[:, None, :] - 2.0 * cross).topk(2, dim=-1, largest=False)
+            else:
+                def library():
+                    with f32_precision():
+                        return torch.cdist(d1, d2).topk(2, dim=-1, largest=False)
 
-        row = dict(
-            shape=[B, n1, n2, D], max_abs_err=err, index_disagreements=n_differ,
-            index_disagreements_off_ties=n_unexcused,
-            ms=_cuda_ms(lambda: MK.match_top2_fused(d1, d2, mask2)),
-            plain_ms=_cuda_ms(lambda: MK.match_top2_plain(d1, d2, n2sq), reps=5),
-            library_ms=_cuda_ms(library, reps=5),
-            bound_ms=max(nbytes / bw, flops / fl) * 1e3,
-        )
-        rows.append(row)
-        if main is None:
-            main = row
-    _print({"phase": "match", "rtol": MATCH_RTOL, "atol": MATCH_ATOL, "tie_rel": MATCH_TIE,
-            "cases": rows})
-    return dict(
-        name="match_top2_fused", route="cuda",
-        source="sfmfromscratch_tpu_torch/csrc/match_top2.cu",
-        replaces="sfmfromscratch_tpu/ops/pallas/match_kernel.py:37 (_match_kernel)",
-        max_abs_err=main["max_abs_err"], ms=main["ms"], plain_ms=main["plain_ms"],
-        bound_ms=main["bound_ms"], bound_by="operations", library_ms=main["library_ms"],
-        library="torch.cdist + topk(2)",
-        per="engine run: one launch, B=9 pairs, 2499 x 2499 x 128",
-        two_view_ms=rows[1]["ms"],
-    )
+            row["shape"] = [B, n1, n2, D]
+            row.update(_kernel_times(lambda: MK.match_top2_fused(d1, d2, mask2, **kw),
+                                     lambda: MK._launch(d1, d2, n2sq, **kw),
+                                     ("match_bf16_kernel" if bf16 else "match_f32_kernel",
+                                      "merge_segments_kernel")))
+            row.update(plain_ms=_cuda_ms(lambda: MK.match_top2_plain(d1, d2, n2sq, **kw), reps=5),
+                       library_ms=_cuda_ms(library, reps=5),
+                       bound_ms=max(nbytes / bw, flops / fl) * 1e3)
+            rows.append(row)
+        tie = _match_tie_case(dev, MK, kw)
+        edges = []
+        for B, n1, n2, D_ in MATCH_EDGE_CASES:
+            d1 = _descriptors(gen, dev, B, n1, D_)
+            d2 = _descriptors(gen, dev, B, n2, D_)
+            mask2 = torch.rand((B, n2), generator=gen, device=dev) > 0.1
+            mask2[:, 0] = True
+            label = f"match {'bf16' if bf16 else 'f32'} edge {B}x{n1}x{n2}x{D_}"
+            edge, _, _ = _match_check(label, MK, d1, d2, mask2, kw)
+            edges.append(dict(edge, shape=[B, n1, n2, D_]))
+        _print({"phase": "match", "mode": "bf16" if bf16 else "f32", "rtol": MATCH_RTOL,
+                "atol": MATCH_ATOL, "tie_rel": MATCH_TIE, "cases": rows, "tie_case": tie,
+                "edge_cases": edges})
+        main, two_view = rows[0], rows[1]
+        kernels.append(dict(
+            name="match_top2_fused(bf16=True)" if bf16 else "match_top2_fused", route="cuda",
+            source="sfmfromscratch_tpu_torch/csrc/match_top2.cu",
+            replaces="sfmfromscratch_tpu/ops/pallas/match_kernel.py:37 (_match_kernel"
+                     + (", bf16=True: match_kernel.py:47-48, 56-57, 76-77)" if bf16 else ")"),
+            max_abs_err=main["max_abs_err"], ms=main["device_ms"], device_ms=main["device_ms"],
+            graph_ms=main["graph_ms"], call_ms=main["call_ms"], plain_ms=main["plain_ms"],
+            bound_ms=main["bound_ms"], bound_by="operations", library_ms=main["library_ms"],
+            library="torch.bmm on bf16 operands (product rounded to bf16) + topk(2)" if bf16
+            else "torch.cdist + topk(2)",
+            per="engine shape: one launch, B=9 pairs, 2499 x 2499 x 128",
+            two_view={k: two_view[k] for k in ("device_ms", "call_ms", "bound_ms", "plain_ms",
+                                               "library_ms")},
+        ))
+    return kernels
 
 
 def slice_phase(dev):
@@ -383,11 +545,13 @@ def slice_phase(dev):
 
     HK.launches = 0
     MK.launches = 0
+    MK.launches_bf16 = 0
     t0 = time.perf_counter()
     res = run()
     torch.cuda.synchronize()
     warm_s = time.perf_counter() - t0
-    launches = {"harris_response_fused": HK.launches, "match_top2_fused": MK.launches}
+    launches = {"harris_response_fused": HK.launches, "match_top2_fused": MK.launches,
+                "match_top2_fused(bf16=True)": MK.launches_bf16}
 
     M = mcfg.max_matches
     _check(launches["harris_response_fused"] > 0, "harris kernel not launched by the slice")
@@ -507,11 +671,13 @@ def engine_phase(dev):
 
         HK.launches = 0
         MK.launches = 0
+        MK.launches_bf16 = 0
         t0 = time.perf_counter()
         eng = SfmEngine(seq, n, config=cfg, single_K=K, device=dev)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         launches = {"harris_response_fused": HK.launches, "match_top2_fused": MK.launches}
+        launches_bf16 = MK.launches_bf16
 
     cams = len(eng.global_poses)
     ate, extent = trajectory_error(eng.global_poses, gt)
@@ -537,7 +703,8 @@ def engine_phase(dev):
 
     _print({"phase": "engine", "views": n, "cold_s": cold_s, "warm_s": warm_s,
             "warm_frames_per_s": n / warm_s, "stage_times_s": eng.stage_times,
-            "launches": launches, "cameras": cams, "ate": ate, "extent": extent,
+            "launches": launches, "launches_bf16_matcher": launches_bf16, "cameras": cams,
+            "ate": ate, "extent": extent,
             "ate_over_extent": ate / extent, "reproj_before_px": e0, "reproj_after_px": e1,
             "tracks": tracks, "observations": eng.map.num_observations,
             "filter_hyps_used": np.asarray(eng.filter_hyps_used).tolist(),
@@ -551,6 +718,7 @@ def engine_phase(dev):
                      "launches": ENGINE_LAUNCHES, "ba_prefix": BA_PREFIX,
                      "ba_prefix_rtol": BA_PREFIX_RTOL, "ba_final_rtol": BA_FINAL_RTOL}})
     _check(launches == ENGINE_LAUNCHES, f"engine launches {launches} != {ENGINE_LAUNCHES}")
+    _check(launches_bf16 == 0, f"engine launched the bf16 matcher {launches_bf16} times")
     _check(cams == PIN_ENGINE_CAMERAS, f"{cams} cameras registered, want {PIN_ENGINE_CAMERAS}")
     _check(bool(np.isfinite([ate, e0, e1]).all()), "non-finite ATE or reprojection error")
     _check(all(np.isfinite(np.hstack(p)).all() for p in eng.global_poses), "non-finite poses")
@@ -561,10 +729,11 @@ def engine_phase(dev):
     for k, card, cpu, rel in prefix[:BA_PREFIX]:
         _check(rel <= BA_PREFIX_RTOL, f"BA cost after {k} iterations: card {card} vs CPU {cpu}")
     _check(abs(cpu_e1 - e1) <= BA_FINAL_RTOL * e1, f"BA final error card {e1} vs CPU {cpu_e1}")
-    return launches
+    return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16})
 
 
-def main() -> int:
+def main(argv) -> int:
+    only_kernels = "--only-kernels" in argv
     try:
         import torch
     except ImportError:
@@ -575,7 +744,7 @@ def main() -> int:
         return 2
     sys.path.insert(0, ROOT)
     try:
-        from sfmfromscratch_tpu_torch.ops.cuda.build import build_all
+        from sfmfromscratch_tpu_torch.ops.cuda.build import SOURCES, build_all, build_log
         _render_module()   # the bench scene renderer
     except ImportError as e:
         print(f"chip_smoke: the repository is not beside this script ({e})", file=sys.stderr)
@@ -588,18 +757,23 @@ def main() -> int:
         t0 = time.perf_counter()
         build_all()
         build_s = time.perf_counter() - t0
-        variant, peaks = _peaks(name)
+        peaks = _peaks(name)
         print(smi, flush=True)
         _print({"phase": "device", "name": name, "nvidia_smi": smi, "build_s": build_s,
-                "torch": torch.__version__, "cuda": torch.version.cuda,
-                "peaks": {"variant": variant, "bytes_per_s": peaks[0], "fp32_flops": peaks[1]}})
+                "torch": torch.__version__, "cuda": torch.version.cuda, "peaks": peaks,
+                "ptxas": {n: build_log(n) for n in SOURCES}})
 
-        kernels = [harris_phase(dev, peaks), match_phase(dev, peaks)]
+        kernels = [harris_phase(dev, peaks), *match_phase(dev, peaks)]
+        if only_kernels:
+            _print({"kernels": kernels})
+            print("chip_smoke: --only-kernels given: slice and engine phases skipped, "
+                  "no result line", file=sys.stderr)
+            return 0
         two_view = slice_phase(dev)
         launches = engine_phase(dev)
         for k in kernels:
-            k["launches"] = launches[k["name"]]
-            k["launches_two_view"] = two_view[k["name"]]
+            k["launches"] = launches.get(k["name"], 0)
+            k["launches_two_view"] = two_view.get(k["name"], 0)
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,
@@ -611,4 +785,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

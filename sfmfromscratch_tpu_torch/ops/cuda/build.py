@@ -3,7 +3,8 @@ interface, and load them with ctypes.
 
 Each source compiles on its own with
 ``nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
--Xcompiler -fPIC`` into ``_build/lib<name>-<hash>.so`` inside the package;
+-Xcompiler -fPIC -Xptxas -v`` into ``_build/lib<name>-<hash>.so`` inside the
+package, with nvcc's report beside it in ``lib<name>-<hash>.log``;
 the hash covers the source text and the flags, so a changed source rebuilds
 and an unchanged one is reused. :func:`build_all` starts one ``nvcc`` per
 source, all at once. Nothing is built when the module is imported.
@@ -34,6 +35,7 @@ SOURCES = {
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",   # registers, shared memory and spills of each kernel, kept in the .log
 ]
 
 _lock = threading.Lock()
@@ -89,9 +91,22 @@ def build_all(names: Optional[List[str]] = None) -> None:
         if proc.returncode != 0:
             errors.append(f"nvcc failed for {SOURCES[n]}:\n{log}")
         else:
+            with open(out[:-3] + ".log", "w") as f:
+                f.write(log)
             os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
+
+
+def build_log(name: str) -> Optional[str]:
+    """nvcc's output for kernel ``name`` at the current source (``-Xptxas -v``:
+    registers, shared memory and spills per kernel), or None if that source
+    has not been built."""
+    path = library_path(name)[:-3] + ".log"
+    if not os.path.exists(path):
+        return None
+    with open(path) as f:
+        return f.read()
 
 
 def load(name: str) -> ctypes.CDLL:

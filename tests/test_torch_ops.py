@@ -142,6 +142,36 @@ def test_harris_wrapper_batched_and_taps():
     np.testing.assert_allclose(np.outer(taps, taps), _np(jimage.gaussian_kernel(7, 6.0)), rtol=1e-5)
 
 
+@pytest.mark.parametrize("G", [3, 5, 7, 31])
+def test_harris_cached_taps_equal_gaussian_taps(G):
+    """The wrapper's cached taps are ``gaussian_taps`` for each (G, sigma),
+    computed once."""
+    for sigma in (1.0, 6.0):
+        taps, address = HK.cached_taps(G, sigma)
+        np.testing.assert_array_equal(taps, HK.gaussian_taps(G, sigma))
+        assert taps.dtype == np.float32 and taps.shape == (G,)
+        assert address == taps.ctypes.data
+        assert HK.cached_taps(G, sigma)[0] is taps
+
+
+@pytest.mark.parametrize("G", [4, 8, 33])
+def test_harris_launch_rejects_sizes_before_building(G, monkeypatch):
+    """An even Gaussian size or one past 31 has no kernel instance: the
+    launch raises before anything is built or loaded."""
+    from sfmfromscratch_tpu_torch.ops.cuda import build
+
+    def no_build(*args, **kwargs):
+        raise AssertionError("the kernel was built")
+
+    monkeypatch.setattr(build, "load", no_build)
+    monkeypatch.setattr(build, "build_all", no_build)
+    monkeypatch.setattr(HK, "_fn", None)
+    with pytest.raises(ValueError, match="gaussian_size"):
+        HK._launch(torch.zeros(1, 8, 8), G, 6.0, 0.05)
+    with pytest.raises(ValueError, match="gaussian_size"):
+        HK.cached_taps(G, 6.0)
+
+
 def test_window_max_and_median_match_jax():
     r = np.random.default_rng(6)
     R = r.standard_normal((31, 40)).astype(np.float32)
@@ -292,6 +322,62 @@ def test_match_top2_batched_wrapper():
     b1, b2, bi = MK.match_top2_fused(_t(d1), _t(d2), _t(m2))
     for b in range(3):
         s1, s2, si = MK.match_top2_fused(_t(d1[b]), _t(d2[b]), _t(m2[b]))
+        np.testing.assert_allclose(_np(b1[b]), _np(s1), atol=1e-6)
+        np.testing.assert_allclose(_np(b2[b]), _np(s2), atol=1e-6)
+        np.testing.assert_array_equal(_np(bi[b]), _np(si))
+
+
+@pytest.mark.parametrize("n2", [300, 4096])
+@pytest.mark.parametrize("masked", [False, True])
+def test_match_top2_bf16_plain_matches_pallas(n2, masked):
+    """The bf16 mode (``bf16=True``: bfloat16 multiplicands, float32 sums)
+    on the CPU against the Pallas kernel's bf16 mode in interpret mode, at
+    n1 = 40 (n2 <= 4096: the single-shot path, clear of the interpret-mode
+    ragged-tile reread). Products of two bfloat16 values are exact in
+    float32, so only the order of the sums differs: squared distances agree
+    to 1e-5 absolute and indices exactly."""
+    r = np.random.default_rng(31)
+    d1, d2 = _rootsift_like(r, 40), _rootsift_like(r, n2)
+    mask2 = (r.uniform(size=n2) > 0.3) if masked else None
+    got = MK.match_top2_fused(_t(d1), _t(d2), None if mask2 is None else _t(mask2), bf16=True)
+    ref = jmatch_top2(jnp.asarray(d1), jnp.asarray(d2),
+                      None if mask2 is None else jnp.asarray(mask2), interpret=True, bf16=True)
+    np.testing.assert_allclose(_np(got[0]), _np(ref[0]), atol=1e-5)
+    np.testing.assert_allclose(_np(got[1]), _np(ref[1]), atol=1e-5)
+    np.testing.assert_array_equal(_np(got[2]), _np(ref[2]))
+    # The rounding is real: the f32 mode gives other distances.
+    f32 = MK.match_top2_fused(_t(d1), _t(d2), None if mask2 is None else _t(mask2))
+    assert np.abs(_np(f32[0]) - _np(got[0])).max() > 1e-6
+
+
+def test_match_top2_ties_go_to_lowest_index_bf16():
+    """The tie test above in the bf16 mode: rows equal in float32 are equal
+    after rounding, so the nearest index is the lowest duplicate and the
+    second distance equals the first, as in the Pallas bf16 mode (tiled
+    path, n2 = 6144)."""
+    r = np.random.default_rng(13)
+    n2 = 6144
+    d2 = _rootsift_like(r, n2)
+    q = np.array([5, 100, 2100, 4400, 6000])
+    d2[q + 3] = d2[q]
+    d2[(q + 2048) % n2] = d2[q]
+    d1 = d2[q].copy()
+    got = MK.match_top2_fused(_t(d1), _t(d2), bf16=True)
+    np.testing.assert_array_equal(_np(got[2]), np.minimum(q, (q + 2048) % n2))
+    np.testing.assert_array_equal(_np(got[0]), _np(got[1]))
+    ref = jmatch_top2(jnp.asarray(d1), jnp.asarray(d2), interpret=True, bf16=True)
+    np.testing.assert_array_equal(_np(got[2]), _np(ref[2]))
+
+
+def test_match_top2_batched_wrapper_bf16():
+    """A (B, n, D) batch in the bf16 mode equals its pairs one by one."""
+    r = np.random.default_rng(14)
+    d1 = np.stack([_rootsift_like(r, 30) for _ in range(3)])
+    d2 = np.stack([_rootsift_like(r, 45) for _ in range(3)])
+    m2 = r.uniform(size=(3, 45)) > 0.2
+    b1, b2, bi = MK.match_top2_fused(_t(d1), _t(d2), _t(m2), bf16=True)
+    for b in range(3):
+        s1, s2, si = MK.match_top2_fused(_t(d1[b]), _t(d2[b]), _t(m2[b]), bf16=True)
         np.testing.assert_allclose(_np(b1[b]), _np(s1), atol=1e-6)
         np.testing.assert_allclose(_np(b2[b]), _np(s2), atol=1e-6)
         np.testing.assert_array_equal(_np(bi[b]), _np(si))

@@ -245,6 +245,24 @@ def test_build_is_keyed_by_source(tmp_path, monkeypatch):
     assert len((tmp_path / "calls.log").read_text().splitlines()) == 3
 
 
+def test_build_keeps_nvcc_report(tmp_path, monkeypatch):
+    """nvcc's output (with ``-Xptxas -v``: registers, shared memory and
+    spills) is kept beside each library and read back by ``build_log``."""
+    script = tmp_path / "nvcc_report"
+    script.write_text("#!/bin/sh\n"
+                      'while [ "$#" -gt 0 ]; do if [ "$1" = "-o" ]; then out="$2"; fi; shift; done\n'
+                      'echo built > "$out"\n'
+                      'echo "ptxas info    : Used 40 registers, 0 bytes spill stores"\n')
+    script.chmod(0o755)
+    monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
+    monkeypatch.setattr(build, "nvcc_path", lambda: str(script))
+    assert "-Xptxas" in build.NVCC_FLAGS and "-v" in build.NVCC_FLAGS
+    assert build.build_log("harris") is None
+    build.build_all(["harris"])
+    assert "Used 40 registers" in build.build_log("harris")
+    assert build.build_log("match_top2") is None
+
+
 def test_precision_scope_turns_off_tf32_and_restores():
     old = (torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
     try:
