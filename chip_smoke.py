@@ -32,11 +32,21 @@ Phases, each printing JSON lines:
              to pins beside the JAX engine's CPU spread
              (``tools/engine_pins.py``), and the card's final BA problem is
              solved again on the CPU.
+5. global  — ``GlobalSfmEngine`` (window 3, 1,024 relative-pose hypotheses,
+             2 BA rounds) on a 20-view 4 deg/view orbit at the bench widths,
+             cold then warm, launches counted over the warm run; held to pins
+             beside the JAX engine's CPU spread (``tools/global_pins.py``),
+             its last BA problem solved again on the CPU.
+6. orbit   — ``SfmEngine`` plain, then with ``chain_refresh="averaging"``,
+             on the 20-view 0.8 deg/view orbit of
+             ``tests/test_pipeline.py::test_chain_refresh_de_bends_orbit`` at
+             that test's settings and gates; launches counted per run.
 
-The line before last is ``{"kernels": [...]}``, with the engine's launch
-counts; the last is ``{"ok": true, "device": {...}}``. Any failed check
-exits non-zero with no result line. Without a CUDA card, or without the rest
-of the repository beside this file, it exits non-zero at once.
+The line before last is ``{"kernels": [...]}``, with each kernel's launch
+counts on every path (engine, two-view, global, orbit); the last is
+``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
+result line. Without a CUDA card, or without the rest of the repository
+beside this file, it exits non-zero at once.
 """
 
 from __future__ import annotations
@@ -100,13 +110,42 @@ BA_PREFIX = 3
 BA_PREFIX_RTOL = 1e-3
 BA_FINAL_RTOL = 0.05
 
+# Global engine pins from the JAX engine on the CPU on the same scene and
+# configuration (tools/global_pins.py, config.seed 0-4, 20 cameras each):
+#   ATE over trajectory extent 0.00072-0.00094, post-BA mean reprojection
+#   error 0.239-0.243 px, tracks 3451-3529, tracks of 3 views or more
+#   1221-1250.
+# The port draws other RANSAC samples. The spread is narrow here (every edge
+# has hundreds of inliers), so the pins leave room for the draws and for the
+# card's summation order: 5x the worst ATE (still 16x below the 8% gate of
+# tests/test_global_sfm.py), 1.25x the worst error, and 85% of the fewest
+# tracks and of the fewest 3-view tracks.
+PIN_GLOBAL_CAMERAS = 20
+PIN_GLOBAL_ATE = 0.005
+PIN_GLOBAL_REPROJ_PX = 0.30
+PIN_GLOBAL_MIN_TRACKS = 2900
+PIN_GLOBAL_MIN_TRACKS_3 = 1030
+# Warm run: Harris once per pyramid level for the 20-image batch, the
+# matcher once for the 19 + 18 + 17 window pairs.
+GLOBAL_LAUNCHES = {"harris_response_fused": 3, "match_top2_fused": 1}
+# The orbit phase's gates are the JAX test's own: the plain chain bends
+# (ATE over extent above 0.05; JAX on the CPU gives 0.081-0.223 over
+# config.seed 0-4, tools/global_pins.py), the refresh removes the bend
+# (below 0.03; JAX 0.0063-0.0131) at under 0.5 px after BA (JAX 0.160-0.177).
+ORBIT_PLAIN_MIN_ATE = 0.05
+ORBIT_REFRESH_MAX_ATE = 0.03
+ORBIT_REFRESH_MAX_REPROJ_PX = 0.5
+ORBIT_LAUNCHES = {"harris_response_fused": 2, "match_top2_fused": 1}
+
 HARRIS_TOL = 1e-5      # max |kernel - plain| <= HARRIS_TOL * max |plain R|
 MATCH_RTOL = 1e-4      # squared distances, relative
 MATCH_ATOL = 1e-6
 MATCH_TIE = 1e-5       # index may differ only where (second - best) <= MATCH_TIE * |best|
 # Matcher shapes: the engine's 9 pairs, the two-view's pair, a 6000-row
-# database; each in f32 and in the bf16 mode (bf16=True).
-MATCH_CASES = [(9, 2499, 2499), (1, 2499, 2499), (1, 2499, 6000)]
+# database, the global engine's 54 window pairs and the orbit's 19 pairs of
+# 600; each in f32 and in the bf16 mode (bf16=True).
+MATCH_CASES = [(9, 2499, 2499), (1, 2499, 2499), (1, 2499, 6000), (54, 2499, 2499),
+               (19, 600, 600)]
 MATCH_MODES = (False, True)
 # Checked only: a one-row database (second best is the sentinel), ragged
 # tiles on both sides, and widths the wrapper pads to a multiple of 32.
@@ -293,10 +332,38 @@ def bench_sequence(out_dir: str, num_views: int = 10):
     return K, poses
 
 
-def trajectory_error(global_poses, gt_poses):
-    """(ATE, trajectory extent) of an engine's ``global_poses`` (cameras of
-    images 2..N) against the ground truth, as ``bench.py::log_ate`` computes
-    them: camera centres, similarity alignment, RMSE."""
+# The global engine's drive: the orbit of the documented global drive (4
+# deg/view, 300 points, 360x480, f=520) at a depth of 20 views.
+GLOBAL_VIEWS = 20
+# The orbit that bends the PnP chain (tests/test_pipeline.py::
+# test_chain_refresh_de_bends_orbit): 20 views at 0.8 deg/view, at that
+# test's extractor and matcher settings.
+ORBIT_VIEWS = 20
+ORBIT_EXTRACTOR = dict(num_interest_points=600, ksize=3, gaussian_size=7, sigma=3.0,
+                       alpha=0.05, feature_width=16, pyramid_level=2, pyramid_scale_factor=1.2)
+ORBIT_MATCHER = dict(ratio_threshold=0.85, max_matches=600)
+
+
+def orbit_sequence(out_dir: str, num_views: int, step_deg: float):
+    """Write ``render_sequence(default_rng(7), num_views, 300 points, 360x480,
+    f=520, orbit_step_deg=step_deg)`` as ``1.jpg..N.jpg`` into ``out_dir``;
+    returns (K, ground-truth world-to-camera poses)."""
+    import numpy as np
+
+    mod = _render_module()
+    images, K, poses, _ = mod.render_sequence(
+        np.random.default_rng(7), num_views=num_views, num_points=300, img_hw=(360, 480),
+        f=520.0, orbit_step_deg=step_deg,
+    )
+    mod.write_sequence(out_dir, images)
+    return K, poses
+
+
+def trajectory_error(global_poses, gt_poses, first_image: int = 2):
+    """(ATE, trajectory extent) of an engine's ``global_poses`` against the
+    ground truth, as ``bench.py::log_ate`` computes them: camera centres,
+    similarity alignment, RMSE. The incremental engine's cameras start at
+    image 2 (``first_image=2``), the global engine's at image 1."""
     import numpy as np
 
     from sfmfromscratch_tpu_torch.utils.metrics import absolute_trajectory_error, camera_centers
@@ -304,7 +371,8 @@ def trajectory_error(global_poses, gt_poses):
     rvecs = np.stack([np.asarray(rv, np.float64) for rv, _ in global_poses])
     ts = np.stack([np.asarray(t, np.float64) for _, t in global_poses])
     est = camera_centers(rvecs, ts)
-    gt = np.stack([-(R.T @ t) for R, t in gt_poses[1:len(est) + 1]])
+    first = first_image - 1
+    gt = np.stack([-(R.T @ t) for R, t in gt_poses[first:first + len(est)]])
     return absolute_trajectory_error(est, gt), float(np.linalg.norm(gt.max(0) - gt.min(0)))
 
 
@@ -325,12 +393,19 @@ def _check(ok: bool, what: str) -> None:
 
 
 ENGINE_LEVELS = [(360, 480), (327, 436), (297, 396)]   # 3 levels x1.1 of 360x480
+ORBIT_LEVELS = [(360, 480), (300, 400)]                 # 2 levels x1.2 of 360x480
+
+
+def _path(rows, per, keys=("device_ms", "call_ms", "bound_ms", "plain_ms")):
+    """One path's numbers: the sums over its launches (rows)."""
+    return dict(per=per, **{k: _sum(rows, k) for k in keys})
 
 
 def harris_phase(dev, peaks):
     """Harris kernel vs plain at the engine's pyramid levels (B=10), the
-    two-view's (B=1), the 960x1280 regime and a width off the 16-byte path;
-    returns the numbers of the engine's three launches."""
+    two-view's (B=1), the global engine's and the orbit's (B=20), the
+    960x1280 regime and a width off the 16-byte path; returns the numbers of
+    the engine's three launches, with each other path's."""
     import torch
 
     from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
@@ -340,6 +415,7 @@ def harris_phase(dev, peaks):
     gen = torch.Generator(device=dev).manual_seed(0)
     # The last case's width is not a multiple of 4: the kernel's scalar path.
     cases = [(10, H, W) for H, W in ENGINE_LEVELS] + [(1, H, W) for H, W in ENGINE_LEVELS] \
+        + [(20, H, W) for H, W in ENGINE_LEVELS] + [(20, *ORBIT_LEVELS[1])] \
         + [(1, 960, 1280), (2, 45, 61)]
     rows = []
     for B, H, W in cases:
@@ -360,7 +436,8 @@ def harris_phase(dev, peaks):
         rows.append(row)
     _print({"phase": "harris", "tol_rel": HARRIS_TOL, "cases": rows})
 
-    engine, two_view = rows[:3], rows[3:6]
+    engine, two_view, global_ = rows[:3], rows[3:6], rows[6:9]
+    orbit = [rows[6], rows[9]]
     return dict(
         name="harris_response_fused", route="cuda",
         source="sfmfromscratch_tpu_torch/csrc/harris.cu",
@@ -377,6 +454,8 @@ def harris_phase(dev, peaks):
                       call_ms=2 * _sum(two_view, "call_ms"),
                       bound_ms=2 * _sum(two_view, "bound_ms"),
                       plain_ms=2 * _sum(two_view, "plain_ms")),
+        global_path=_path(global_, "global run: 3 launches, B=20 at 360x480, 327x436, 297x396"),
+        orbit_path=_path(orbit, "orbit run: 2 launches, B=20 at 360x480, 300x400"),
     )
 
 
@@ -496,7 +575,8 @@ def match_phase(dev, peaks):
         _print({"phase": "match", "mode": "bf16" if bf16 else "f32", "rtol": MATCH_RTOL,
                 "atol": MATCH_ATOL, "tie_rel": MATCH_TIE, "cases": rows, "tie_case": tie,
                 "edge_cases": edges})
-        main, two_view = rows[0], rows[1]
+        main, two_view, global_, orbit = rows[0], rows[1], rows[3], rows[4]
+        path_keys = ("device_ms", "call_ms", "bound_ms", "plain_ms", "library_ms")
         kernels.append(dict(
             name="match_top2_fused(bf16=True)" if bf16 else "match_top2_fused", route="cuda",
             source="sfmfromscratch_tpu_torch/csrc/match_top2.cu",
@@ -508,8 +588,11 @@ def match_phase(dev, peaks):
             library="torch.bmm on bf16 operands (product rounded to bf16) + topk(2)" if bf16
             else "torch.cdist + topk(2)",
             per="engine shape: one launch, B=9 pairs, 2499 x 2499 x 128",
-            two_view={k: two_view[k] for k in ("device_ms", "call_ms", "bound_ms", "plain_ms",
-                                               "library_ms")},
+            two_view={k: two_view[k] for k in path_keys},
+            global_path=_path([global_], "global run: one launch, B=54 pairs, 2499 x 2499 x 128",
+                              path_keys),
+            orbit_path=_path([orbit], "orbit run: one launch, B=19 pairs, 600 x 600 x 128",
+                             path_keys),
         ))
     return kernels
 
@@ -732,6 +815,171 @@ def engine_phase(dev):
     return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16})
 
 
+def _resolve_ba_on_cpu(eng, ba_cfg):
+    """The card's last BA problem of ``eng`` solved again on the CPU: the
+    costs after each of the first 6 iterations on both sides, and the CPU's
+    full run."""
+    from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
+    from sfmfromscratch_tpu_torch.ba.problem import BAProblem
+
+    prob_cpu = BAProblem(*(None if v is None else v.cpu() for v in eng.ba_problem))
+    kw = dict(cg_iters=60, init_damping=ba_cfg.init_damping, damping_up=ba_cfg.damping_up,
+              damping_down=ba_cfg.damping_down, ftol=ba_cfg.ftol, huber_delta=ba_cfg.huber_delta)
+    prefix = []
+    for k in range(1, 7):
+        card = float(bundle_adjust(eng.ba_problem, max_iters=k, **kw).final_cost)
+        cpu = float(bundle_adjust(prob_cpu, max_iters=k, **kw).final_cost)
+        prefix.append([k, card, cpu, abs(card - cpu) / cpu])
+    t0 = time.perf_counter()
+    res_cpu = bundle_adjust(prob_cpu, max_iters=ba_cfg.max_lm_iters, **kw)
+    return prefix, res_cpu, time.perf_counter() - t0
+
+
+def _launch_counts():
+    from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
+    from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+
+    return {"harris_response_fused": HK.launches, "match_top2_fused": MK.launches,
+            "match_top2_fused(bf16=True)": MK.launches_bf16}
+
+
+def _zero_launch_counts():
+    from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
+    from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+
+    HK.launches = 0
+    MK.launches = 0
+    MK.launches_bf16 = 0
+
+
+def global_phase(dev):
+    """``GlobalSfmEngine`` on the 20-view 4 deg/view orbit at the bench
+    widths, cold then warm; returns the warm run's launch counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+
+    cfg = engine_config()
+    n = GLOBAL_VIEWS
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_global_") as seq:
+        K, gt = orbit_sequence(seq, n, 4.0)
+        t0 = time.perf_counter()
+        GlobalSfmEngine(seq, n, config=cfg, single_K=K, device=dev)
+        torch.cuda.synchronize()
+        cold_s = time.perf_counter() - t0
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        eng = GlobalSfmEngine(seq, n, config=cfg, single_K=K, device=dev)
+        torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        launches = _launch_counts()
+
+    cams = len(eng.global_poses)
+    ate, extent = trajectory_error(eng.global_poses, gt, first_image=1)
+    e0, e1 = eng.errors_before_after_ba
+    _, tracks, _ = eng.map.observations()
+    tracks_3 = int((np.bincount(tracks, minlength=eng.map.num_tracks) >= 3).sum())
+    prefix, res_cpu, cpu_ba_s = _resolve_ba_on_cpu(eng, eng.config.ba)
+    cpu_e1 = float(res_cpu.final_mean_error)
+    want = dict(GLOBAL_LAUNCHES, **{"match_top2_fused(bf16=True)": 0})
+    _print({"phase": "global", "views": n, "cold_s": cold_s, "warm_s": warm_s,
+            "stage_times_s": eng.stage_times, "launches": launches, "cameras": cams,
+            "ate": ate, "extent": extent, "ate_over_extent": ate / extent,
+            "reproj_before_px": e0, "reproj_after_px": e1, "tracks": eng.map.num_tracks,
+            "tracks_3plus": tracks_3, "observations": eng.map.num_observations,
+            "edges": len(eng._edges), "live_edges": int((eng._edge_w > 0).sum()),
+            "warnings": eng.warnings, "filter_hyps_used": np.asarray(eng.filter_hyps_used).tolist(),
+            "ba_iterations_last_round": eng.ba_result.iterations_used,
+            "ba_problem_padded": [eng.ba_problem.num_cameras, eng.ba_problem.num_points,
+                                  eng.ba_problem.num_obs],
+            "ba_cpu": {"iterations": res_cpu.iterations_used, "reproj_after_px": cpu_e1,
+                       "seconds": cpu_ba_s, "prefix_k_card_cpu_cost_rel": prefix},
+            "pins": {"cameras": PIN_GLOBAL_CAMERAS, "ate_over_extent": PIN_GLOBAL_ATE,
+                     "reproj_px": PIN_GLOBAL_REPROJ_PX, "min_tracks": PIN_GLOBAL_MIN_TRACKS,
+                     "min_tracks_3plus": PIN_GLOBAL_MIN_TRACKS_3, "launches": want}})
+    _check(launches == want, f"global launches {launches} != {want}")
+    _check(cams == PIN_GLOBAL_CAMERAS, f"{cams} cameras, want {PIN_GLOBAL_CAMERAS}")
+    _check(bool(np.allclose(np.hstack(eng.global_poses[0]), 0.0, atol=1e-5)),
+           "camera 0 is not the identity")
+    _check(bool(np.isfinite([ate, e0, e1]).all()), "non-finite ATE or reprojection error")
+    _check(all(np.isfinite(np.hstack(p)).all() for p in eng.global_poses), "non-finite poses")
+    _check(bool(np.isfinite(eng.map.points()).all()), "non-finite points")
+    _check(ate / extent <= PIN_GLOBAL_ATE, f"ATE over extent {ate / extent} > {PIN_GLOBAL_ATE}")
+    _check(e1 <= PIN_GLOBAL_REPROJ_PX, f"post-BA reprojection {e1} px > {PIN_GLOBAL_REPROJ_PX}")
+    _check(eng.map.num_tracks >= PIN_GLOBAL_MIN_TRACKS,
+           f"{eng.map.num_tracks} tracks < {PIN_GLOBAL_MIN_TRACKS}")
+    _check(tracks_3 >= PIN_GLOBAL_MIN_TRACKS_3,
+           f"{tracks_3} tracks of 3+ views < {PIN_GLOBAL_MIN_TRACKS_3}")
+    for k, card, cpu, rel in prefix[:BA_PREFIX]:
+        _check(rel <= BA_PREFIX_RTOL, f"global BA cost after {k} iterations: card {card} vs CPU {cpu}")
+    _check(abs(cpu_e1 - e1) <= BA_FINAL_RTOL * e1, f"global BA final error card {e1} vs CPU {cpu_e1}")
+    return launches
+
+
+def orbit_phase(dev):
+    """``SfmEngine`` plain and with ``chain_refresh="averaging"`` on the
+    0.8 deg/view orbit, each run's launches counted; returns the refreshed
+    run's counts."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch.config import (
+        BundleAdjustConfig,
+        ExtractorConfig,
+        MatcherConfig,
+        PipelineConfig,
+        RansacConfig,
+    )
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    cfg = PipelineConfig(extractor=ExtractorConfig(**ORBIT_EXTRACTOR),
+                         matcher=MatcherConfig(**ORBIT_MATCHER), ransac=RansacConfig(),
+                         ba=BundleAdjustConfig(), scale_factor=1.0)
+    n = ORBIT_VIEWS
+    runs = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_orbit_") as seq:
+        K, gt = orbit_sequence(seq, n, 0.8)
+        for label, kw in (("plain", {}), ("refresh", {"chain_refresh": "averaging"})):
+            _zero_launch_counts()
+            t0 = time.perf_counter()
+            eng = SfmEngine(seq, n, config=cfg, single_K=K, device=dev, **kw)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ate, extent = trajectory_error(eng.global_poses, gt)
+            runs[label] = dict(wall_s=wall, launches=_launch_counts(),
+                               cameras=len(eng.global_poses), ate_over_extent=ate / extent,
+                               reproj_before_px=eng.errors_before_after_ba[0],
+                               reproj_after_px=eng.errors_before_after_ba[1],
+                               tracks=eng.map.num_tracks, stage_times_s=eng.stage_times,
+                               warnings=eng.warnings,
+                               finite=bool(np.isfinite(eng.map.points()).all()
+                                           and all(np.isfinite(np.hstack(p)).all()
+                                                   for p in eng.global_poses)))
+    want = dict(ORBIT_LAUNCHES, **{"match_top2_fused(bf16=True)": 0})
+    _print({"phase": "orbit", "views": n, "runs": runs,
+            "chain_refresh_s": runs["refresh"]["stage_times_s"].get("chain_refresh"),
+            "gates": {"plain_min_ate_over_extent": ORBIT_PLAIN_MIN_ATE,
+                      "refresh_max_ate_over_extent": ORBIT_REFRESH_MAX_ATE,
+                      "refresh_max_reproj_px": ORBIT_REFRESH_MAX_REPROJ_PX, "launches": want}})
+    for label, r in runs.items():
+        _check(r["launches"] == want, f"orbit {label} launches {r['launches']} != {want}")
+        _check(r["cameras"] == n - 1, f"orbit {label}: {r['cameras']} cameras")
+        _check(r["finite"], f"orbit {label}: non-finite poses or points")
+    _check("chain_refresh" in runs["refresh"]["stage_times_s"], "chain refresh did not run")
+    _check(runs["plain"]["ate_over_extent"] > ORBIT_PLAIN_MIN_ATE,
+           f"plain chain ATE over extent {runs['plain']['ate_over_extent']} <= {ORBIT_PLAIN_MIN_ATE}")
+    _check(runs["refresh"]["ate_over_extent"] < ORBIT_REFRESH_MAX_ATE,
+           f"refreshed ATE over extent {runs['refresh']['ate_over_extent']} >= {ORBIT_REFRESH_MAX_ATE}")
+    _check(runs["refresh"]["reproj_after_px"] < ORBIT_REFRESH_MAX_REPROJ_PX,
+           f"refreshed post-BA error {runs['refresh']['reproj_after_px']} px")
+    return runs["refresh"]["launches"]
+
+
 def main(argv) -> int:
     only_kernels = "--only-kernels" in argv
     try:
@@ -771,9 +1019,13 @@ def main(argv) -> int:
             return 0
         two_view = slice_phase(dev)
         launches = engine_phase(dev)
+        global_ = global_phase(dev)
+        orbit = orbit_phase(dev)
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
             k["launches_two_view"] = two_view.get(k["name"], 0)
+            k["launches_global"] = global_.get(k["name"], 0)
+            k["launches_orbit"] = orbit.get(k["name"], 0)
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -167,23 +167,26 @@ def _lo_refit(F_b, inl_b, msac_b, p1, p2, mask, threshold: float, rounds: int):
 
 def _pose_from_refit(F_b, inl_b, p1_s, p2_s, mask_s, K1, K2, min_strict) -> RansacPoseResult:
     """Decompose the refit F's essential matrix and re-select the cheirality
-    candidate (the refit can change the pose, not just the inlier set)."""
+    candidate (the refit can change the pose, not just the inlier set).
+    Leading lane dimensions are allowed, on K too."""
     eps = 1e-6
-    E_f = essential_from_fundamental(F_b[None], K1, K2)
+    E_f = essential_from_fundamental(F_b[..., None, :, :], K1[..., None, :, :],
+                                     K2[..., None, :, :])
     R1f, R2f, tf = decompose_essential(E_f)
-    Rcf = torch.stack([R1f, R1f, R2f, R2f], dim=1)[0]        # (4, 3, 3)
-    tcf = torch.stack([tf, -tf, tf, -tf], dim=1)[0]          # (4, 3)
-    z1f, z2f = two_view_depths(Rcf, tcf, p1_s, p2_s, K1, K2)  # (4, ns)
-    front_f = (z1f > eps) & (z2f > eps) & mask_s[None, :]
-    che_f = torch.sum(front_f, dim=-1)                       # (4,)
-    cand = torch.argmax(che_f)
+    Rcf = torch.cat([R1f, R1f, R2f, R2f], dim=-3)             # (..., 4, 3, 3)
+    tcf = torch.cat([tf, -tf, tf, -tf], dim=-2)               # (..., 4, 3)
+    z1f, z2f = two_view_depths(Rcf, tcf, p1_s[..., None, :, :], p2_s[..., None, :, :],
+                               K1[..., None, :, :], K2[..., None, :, :])   # (..., 4, ns)
+    front_f = (z1f > eps) & (z2f > eps) & mask_s[..., None, :]
+    che_f = torch.sum(front_f, dim=-1)                        # (..., 4)
+    cand = torch.argmax(che_f, dim=-1, keepdim=True)
     return RansacPoseResult(
-        R=Rcf[cand],
-        t=tcf[cand],
+        R=torch.take_along_dim(Rcf, cand[..., None, None], dim=-3)[..., 0, :, :],
+        t=torch.take_along_dim(tcf, cand[..., None], dim=-2)[..., 0, :],
         F=F_b,
         inliers=inl_b,
-        num_inliers=torch.sum(inl_b),
-        cheirality_ok=torch.max(che_f) >= min_strict,
+        num_inliers=torch.sum(inl_b, dim=-1),
+        cheirality_ok=torch.max(che_f, dim=-1).values >= min_strict,
     )
 
 
@@ -390,7 +393,6 @@ def ransac_fundamental_adaptive(
     return RansacFAdaptiveResult(*(v[0] for v in res))
 
 
-@mm_f32
 def ransac_essential_pose_adaptive(
     generator: Optional[torch.Generator],
     p1: torch.Tensor,
@@ -407,85 +409,133 @@ def ransac_essential_pose_adaptive(
     cheirality_subset: int = 1024,
     uniforms: Optional[torch.Tensor] = None,
 ) -> RansacPoseResult:
-    """Adaptive relative-pose RANSAC (ransac.py:443-594): the hypothesis
-    pipeline of :func:`ransac_essential_pose` in stages of ``stage_size``
-    with the adaptive stopping rule, one host read per stage, then the same
-    LO refit and candidate re-selection. The carry keeps the best strict
-    hypothesis (by MSAC) and the best loose one (by cheirality, then
-    inliers); the stopping rule follows the current winner's support.
-
-    ``uniforms`` (stages, stage_size, s) replaces the draws from
-    ``generator``: stage k uses ``uniforms[k]``.
-    """
-    n = p1.shape[0]
-    dev = p1.device
+    """Adaptive relative-pose RANSAC of one pair (ransac.py:443-594):
+    :func:`ransac_essential_pose_adaptive_batch` of one lane. ``uniforms``
+    (stages, stage_size, s) replaces the draws from ``generator``: stage k
+    uses ``uniforms[k]``."""
     if mask is None:
-        mask = torch.ones((n,), dtype=torch.bool, device=dev)
-    maskf = mask.to(p1.dtype)
-    n_valid = torch.sum(mask)
+        mask = torch.ones(p1.shape[:1], dtype=torch.bool, device=p1.device)
+    res = ransac_essential_pose_adaptive_batch(
+        generator, p1[None], p2[None], K1[None], K2[None], mask[None],
+        max_hypotheses=max_hypotheses, stage_size=stage_size, threshold=threshold,
+        sample_size=sample_size, confidence=confidence,
+        min_cheirality_frac=min_cheirality_frac, cheirality_subset=cheirality_subset,
+        uniforms=None if uniforms is None else uniforms[None],
+    )
+    return RansacPoseResult(*(v[0] for v in res))
+
+
+@mm_f32
+def ransac_essential_pose_adaptive_batch(
+    generator: Optional[torch.Generator],
+    p1: torch.Tensor,           # (P, N, 2)
+    p2: torch.Tensor,           # (P, N, 2)
+    K1: torch.Tensor,           # (P, 3, 3)
+    K2: torch.Tensor,           # (P, 3, 3)
+    mask: torch.Tensor,         # (P, N) bool
+    max_hypotheses: int = 6144,
+    stage_size: int = 256,
+    threshold: float = 1.0,
+    sample_size: int = 8,
+    confidence: float = 0.98,
+    min_cheirality_frac: float = 0.75,
+    cheirality_subset: int = 512,
+    uniforms: Optional[torch.Tensor] = None,
+) -> RansacPoseResult:
+    """Adaptive (early-terminating) relative-pose RANSAC for P pairs, each
+    with its own intrinsics (ransac.py:443-630: the single-pair program and
+    its ``vmap``). Per stage of ``stage_size`` hypotheses: 8-point F -> E ->
+    4 (R, t) candidates, the best cheirality count; a hypothesis is strict
+    when that count reaches ``min_cheirality_frac`` of the cheirality
+    subset's valid points. Each lane carries its best strict hypothesis (by
+    MSAC) and its best loose one (by cheirality, then inliers), and stops by
+    the adaptive rule on the current winner's support. One host read per
+    stage decides which lanes go on; only those are scored, so a finished
+    lane keeps its winner while the others draw, as under ``vmap``. Then
+    two rounds of LO refit and the candidate re-selection. Every result
+    field gains a leading P dimension.
+
+    ``uniforms`` (P, stages, stage_size, s) replaces the draws from
+    ``generator``: lane b's stage k uses ``uniforms[b, k]``.
+    """
+    P, n = p1.shape[0], p1.shape[1]
+    dev, dt = p1.device, p1.dtype
+    maskf = mask.to(dt)
+    n_valid = torch.sum(mask, dim=-1)
     thr2 = threshold * threshold
-
     ns = min(cheirality_subset, n)
-    p1_s, p2_s, mask_s = p1[:ns], p2[:ns], mask[:ns]
-    n_valid_s = torch.sum(mask_s)
+    p1_s, p2_s, mask_s = p1[:, :ns], p2[:, :ns], mask[:, :ns]
+    min_strict = (min_cheirality_frac * torch.sum(mask_s, dim=-1)).to(torch.int32)
     eps = 1e-6
-    min_strict = (min_cheirality_frac * n_valid_s).to(torch.int32)
 
-    done = torch.zeros((), dtype=torch.int32, device=dev)
-    F_s = torch.eye(3, dtype=p1.dtype, device=dev)
-    inl_s = torch.zeros((n,), dtype=torch.bool, device=dev)
-    msac_s = torch.tensor(float("inf"), dtype=p1.dtype, device=dev)
-    has_s = torch.zeros((), dtype=torch.bool, device=dev)
-    F_l = torch.eye(3, dtype=p1.dtype, device=dev)
-    inl_l = torch.zeros((n,), dtype=torch.bool, device=dev)
-    lsc = torch.tensor(float("-inf"), dtype=torch.float32, device=dev)
-    best_cnt = torch.zeros((), dtype=torch.int32, device=dev)
+    done = torch.zeros((P,), dtype=torch.int32, device=dev)
+    F_s = torch.eye(3, dtype=dt, device=dev).repeat(P, 1, 1)
+    inl_s = torch.zeros((P, n), dtype=torch.bool, device=dev)
+    msac_s = torch.full((P,), float("inf"), dtype=dt, device=dev)
+    has_s = torch.zeros((P,), dtype=torch.bool, device=dev)
+    F_l = F_s.clone()
+    inl_l = inl_s.clone()
+    lsc = torch.full((P,), float("-inf"), dtype=torch.float32, device=dev)
+    best_cnt = torch.zeros((P,), dtype=torch.int32, device=dev)
     stage = 0
-    while bool(_keep_going(best_cnt, done, n_valid, stage_size, max_hypotheses, sample_size,
-                           confidence)):
+    while True:
+        go = _keep_going(best_cnt, done, n_valid, stage_size, max_hypotheses, sample_size,
+                         confidence).cpu()
+        if not bool(go.any()):
+            break
+        ld = torch.nonzero(go)[:, 0].to(dev)
+        A = ld.shape[0]
         if uniforms is None:
-            u = draw_uniforms(generator, stage_size, sample_size, dev)
+            u = torch.rand((A, stage_size, sample_size), generator=generator, device=dev,
+                           dtype=torch.float32)
         else:
-            u = uniforms[stage].to(dev)
-        idx = uniforms_to_indices(u, n, mask, sample_size)
-        F = eight_point_fundamental(p1[idx], p2[idx])            # (S, 3, 3)
-        E = essential_from_fundamental(F, K1, K2)
-        R1, R2, t = decompose_essential(E)
-        Rc = torch.stack([R1, R1, R2, R2], dim=1)                # (S, 4, 3, 3)
-        tc = torch.stack([t, -t, t, -t], dim=1)                  # (S, 4, 3)
-        z1, z2 = two_view_depths(Rc, tc, p1_s, p2_s, K1, K2)     # (S, 4, ns)
-        front = (z1 > eps) & (z2 > eps) & mask_s[None, None, :]
-        best_che = torch.max(torch.sum(front, dim=-1), dim=-1).values   # (S,)
-        d = epipolar_distances(F, p1, p2)                        # (S, N)
-        inl = (d < threshold) & mask[None, :]
+            u = uniforms[go.nonzero()[:, 0], stage].to(dev)
+        q1, q2, m, mf = p1[ld], p2[ld], mask[ld], maskf[ld]
+        k1, k2 = K1[ld][:, None], K2[ld][:, None]
+        idx = uniforms_to_indices(u, n, m, sample_size)                   # (A, S, s)
+        a = torch.arange(A, device=dev)[:, None, None]
+        F = eight_point_fundamental(q1[a, idx], q2[a, idx])               # (A, S, 3, 3)
+        R1, R2, t = decompose_essential(essential_from_fundamental(F, k1, k2))
+        Rc = torch.stack([R1, R1, R2, R2], dim=2)                         # (A, S, 4, 3, 3)
+        tc = torch.stack([t, -t, t, -t], dim=2)                           # (A, S, 4, 3)
+        z1, z2 = two_view_depths(Rc, tc, p1_s[ld][:, None, None], p2_s[ld][:, None, None],
+                                 k1[:, None], k2[:, None])                # (A, S, 4, ns)
+        front = (z1 > eps) & (z2 > eps) & mask_s[ld][:, None, None, :]
+        best_che = torch.max(torch.sum(front, dim=-1), dim=-1).values     # (A, S)
+        d = epipolar_distances(F, q1[:, None], q2[:, None])               # (A, S, N)
+        inl = (d < threshold) & m[:, None, :]
         cnt = torch.sum(inl, dim=-1)
-        msac = torch.sum(torch.clamp_max(d * d, thr2) * maskf[None, :], dim=-1)
-        strict = best_che >= min_strict
-        sb = torch.argmax(torch.where(strict, -msac, float("-inf")))
+        msac = torch.sum(torch.clamp_max(d * d, thr2) * mf[:, None, :], dim=-1)
+        strict = best_che >= min_strict[ld][:, None]
+        sb = torch.argmax(torch.where(strict, -msac, float("-inf")), dim=-1)
         loose = best_che * (n + 1) + cnt
-        lb = torch.argmax(loose)
+        lb = torch.argmax(loose, dim=-1)
+        ar = torch.arange(A, device=dev)
 
-        sb_better = strict[sb] & (msac[sb] < msac_s)
-        F_s = torch.where(sb_better, F[sb], F_s)
-        inl_s = torch.where(sb_better, inl[sb], inl_s)
-        msac_s = torch.where(sb_better, msac[sb], msac_s)
-        has_s = has_s | strict[sb]
-        lscb = loose[lb].to(torch.float32)
-        lb_better = lscb > lsc
-        F_l = torch.where(lb_better, F[lb], F_l)
-        inl_l = torch.where(lb_better, inl[lb], inl_l)
-        lsc = torch.where(lb_better, lscb, lsc)
+        strict_b = strict[ar, sb]
+        sb_better = strict_b & (msac[ar, sb] < msac_s[ld])
+        F_s[ld] = torch.where(sb_better[:, None, None], F[ar, sb], F_s[ld])
+        inl_s[ld] = torch.where(sb_better[:, None], inl[ar, sb], inl_s[ld])
+        msac_s[ld] = torch.where(sb_better, msac[ar, sb], msac_s[ld])
+        has = has_s[ld] | strict_b
+        has_s[ld] = has
+        lscb = loose[ar, lb].to(torch.float32)
+        lb_better = lscb > lsc[ld]
+        F_l[ld] = torch.where(lb_better[:, None, None], F[ar, lb], F_l[ld])
+        inl_l[ld] = torch.where(lb_better[:, None], inl[ar, lb], inl_l[ld])
+        lsc[ld] = torch.where(lb_better, lscb, lsc[ld])
         # The stopping rule follows the support of the current winner.
-        zero = torch.zeros_like(best_cnt)
-        best_cnt = torch.maximum(best_cnt, torch.where(
-            sb_better | (strict[sb] & ~has_s), cnt[sb].to(torch.int32), zero))
-        best_cnt = torch.maximum(best_cnt, torch.where(has_s, best_cnt, cnt[lb].to(torch.int32)))
-        done = done + stage_size
+        bc = best_cnt[ld]
+        zero = torch.zeros_like(bc)
+        bc = torch.maximum(bc, torch.where(sb_better | (strict_b & ~has),
+                                           cnt[ar, sb].to(torch.int32), zero))
+        best_cnt[ld] = torch.maximum(bc, torch.where(has, bc, cnt[ar, lb].to(torch.int32)))
+        done[ld] += stage_size
         stage += 1
 
-    F0 = torch.where(has_s, F_s, F_l)
-    inl0 = torch.where(has_s, inl_s, inl_l)
-    d_l = epipolar_distances(F_l[None], p1, p2)[0]
-    msac0 = torch.where(has_s, msac_s, torch.sum(torch.clamp_max(d_l * d_l, thr2) * maskf))
+    F0 = torch.where(has_s[:, None, None], F_s, F_l)
+    inl0 = torch.where(has_s[:, None], inl_s, inl_l)
+    d_l = epipolar_distances(F_l, p1, p2)
+    msac0 = torch.where(has_s, msac_s, torch.sum(torch.clamp_max(d_l * d_l, thr2) * maskf, dim=-1))
     F_b, inl_b, _ = _lo_refit(F0, inl0, msac0, p1, p2, mask, threshold, rounds=2)
     return _pose_from_refit(F_b, inl_b, p1_s, p2_s, mask_s, K1, K2, min_strict)

@@ -9,6 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from sfmfromscratch_tpu_torch.ba.schur import segment_sum
 from sfmfromscratch_tpu_torch.ops.smallsvd import nullvec_lstsq
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
 
@@ -93,23 +94,95 @@ def refine_points_gn(
 
 
 @mm_f32
+def triangulate_multiview(
+    P_all: torch.Tensor,        # (C, 3, 4) projection matrices
+    obs_cam: torch.Tensor,      # (O,) camera index per observation
+    obs_pt: torch.Tensor,       # (O,) track index per observation
+    obs_xy: torch.Tensor,       # (O, 2) pixel observations
+    num_points: int,
+    obs_w: Optional[torch.Tensor] = None,   # (O,) weights; 0 disables
+    gn_iters: int = 8,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Batched multiview DLT + Gauss-Newton over a flat observation list
+    (triangulation.py:143-228): each track's 4x4 normal matrix of
+    unit-normalised DLT rows is a segment sum, its null vector the smallest
+    eigenvector (sign-free after dehomogenisation), and each GN step
+    accumulates per-track 3x3 normal equations the same way and solves them
+    by LU. A track's step is kept only if it lowers that track's cost and
+    the track has 2 observations or more. Returns ``(X (num_points, 3),
+    nobs (num_points,))``."""
+    O = obs_xy.shape[0]
+    cam, pt = obs_cam.long(), obs_pt.long()
+    w = torch.ones((O,), dtype=obs_xy.dtype, device=obs_xy.device) if obs_w is None \
+        else obs_w.to(obs_xy.dtype)
+    P = P_all[cam]                                           # (O, 3, 4)
+    u = obs_xy[..., 0:1]
+    v = obs_xy[..., 1:2]
+    r1 = u * P[:, 2, :] - P[:, 0, :]
+    r2 = v * P[:, 2, :] - P[:, 1, :]
+    r1 = r1 / torch.clamp_min(torch.linalg.norm(r1, dim=-1, keepdim=True), 1e-9)
+    r2 = r2 / torch.clamp_min(torch.linalg.norm(r2, dim=-1, keepdim=True), 1e-9)
+    M_obs = r1[:, :, None] * r1[:, None, :] + r2[:, :, None] * r2[:, None, :]
+    M = segment_sum(w[:, None, None] * M_obs, pt, num_points)
+    nobs = segment_sum((w > 0).to(torch.int32), pt, num_points)
+    M = M + 1e-9 * torch.eye(4, dtype=M.dtype, device=M.device)
+    _, V = torch.linalg.eigh(M)                              # ascending eigenvalues
+    Xh = V[..., :, 0]
+    wh = Xh[..., 3:4]
+    tiny = torch.where(wh < 0, -1e-12, 1e-12)
+    X = Xh[..., :3] / torch.where(torch.abs(wh) < 1e-12, tiny, wh)
+
+    eye = 1e-6 * torch.eye(3, dtype=X.dtype, device=X.device)
+
+    def obs_res_jac(X):
+        Xo = X[pt]
+        Xh = torch.cat([Xo, torch.ones_like(Xo[:, :1])], dim=-1)
+        h = torch.einsum("oij,oj->oi", P, Xh)
+        z = torch.where(torch.abs(h[:, 2:3]) < 1e-12, 1e-12, h[:, 2:3])
+        r = h[:, :2] / z - obs_xy
+        A = P[:, :2, :3]
+        B = h[:, :2, None] * P[:, None, 2, :3]
+        J = (A * z[:, :, None] - B) / (z[:, :, None] ** 2)
+        return r * w[:, None], J * w[:, None, None]
+
+    def track_cost(X):
+        r, _ = obs_res_jac(X)
+        return segment_sum(torch.sum(r * r, dim=-1), pt, num_points)
+
+    for _ in range(gn_iters):
+        r, J = obs_res_jac(X)
+        JtJ = segment_sum(torch.einsum("oki,okj->oij", J, J), pt, num_points) + eye
+        g = segment_sum(torch.einsum("oki,ok->oi", J, r), pt, num_points)
+        dx = torch.linalg.solve(JtJ, g[..., None])[..., 0]
+        X_new = X - dx
+        ok = (torch.all(torch.isfinite(X_new), dim=-1)
+              & (track_cost(X_new) <= track_cost(X)) & (nobs >= 2))
+        X = torch.where(ok[:, None], X_new, X)
+    return X, nobs
+
+
+@mm_f32
 def two_view_depths(
     R: torch.Tensor, t: torch.Tensor, x1: torch.Tensor, x2: torch.Tensor,
     K1: torch.Tensor, K2: torch.Tensor,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Closed-form depths of (..., N, 2) correspondences under relative pose
     (R, t): z1 = (c x r2).(t x r2) / ||c x r2||^2 with c = R r1
-    (replaces the reference's per-candidate DLT scan, SFM.py:105-124)."""
+    (replaces the reference's per-candidate DLT scan, SFM.py:105-124).
+
+    K1, K2 are (3, 3), or carry the leading dimensions of the points, which
+    makes this the JAX ``vmap`` of the function over those dimensions."""
     K1i = torch.linalg.inv(K1)
     K2i = torch.linalg.inv(K2)
     u1, v1 = x1[..., 0], x1[..., 1]
     u2, v2 = x2[..., 0], x2[..., 1]
 
     def backproject(Ki, u, v):
+        k = [[Ki[..., a, b, None] for b in range(3)] for a in range(3)]
         return (
-            Ki[0, 0] * u + Ki[0, 1] * v + Ki[0, 2],
-            Ki[1, 0] * u + Ki[1, 1] * v + Ki[1, 2],
-            Ki[2, 0] * u + Ki[2, 1] * v + Ki[2, 2],
+            k[0][0] * u + k[0][1] * v + k[0][2],
+            k[1][0] * u + k[1][1] * v + k[1][2],
+            k[2][0] * u + k[2][1] * v + k[2][2],
         )
 
     r1x, r1y, r1z = backproject(K1i, u1, v1)

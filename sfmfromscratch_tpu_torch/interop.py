@@ -109,6 +109,38 @@ def import_engine_state(engine, source) -> None:
                             for k, pg in source.pair_geometry.items()}
 
 
+# The global engine's view-graph state, stage by stage: the edges with their
+# relative poses and weights, inlier sets and stashed homography runner-ups;
+# the averaged rotations and centres; the tracks' observation lists.
+_GLOBAL_STATE = ("_edges", "_edge_R", "_edge_t", "_edge_w", "_edge_inl", "_edge_alt",
+                 "R_cams", "c_cams", "_num_points", "_obs_cam", "_obs_kp", "_obs_pt",
+                 "_obs_xy", "_kp_xy")
+
+
+def _copy_host(v):
+    if isinstance(v, dict):
+        return {k: _copy_host(x) for k, x in v.items()}
+    if isinstance(v, (list, tuple)):
+        return type(v)(_copy_host(x) for x in v)
+    if v is None or isinstance(v, (int, float)):
+        return v
+    return np.array(v)
+
+
+def import_global_state(engine, source) -> None:
+    """Copy a JAX ``GlobalSfmEngine``'s intermediate state into the port's
+    ``engine``: its ``pair_geometry``, and every view-graph attribute the
+    source has reached (edges and relative poses, edge weights and inlier
+    masks, averaged rotations and centres, track observations), as numpy
+    copies, so a test can run one of the port's stages on the JAX input."""
+    engine.pair_geometry = {k: PairGeometry(*(np.array(v) for v in pg))
+                            for k, pg in source.pair_geometry.items()}
+    for name in _GLOBAL_STATE:
+        if getattr(source, name, None) is not None:
+            v = getattr(source, name)
+            setattr(engine, name, list(v) if name == "_edges" else _copy_host(v))
+
+
 def to_numpy(nt: NamedTuple):
     """A NamedTuple of tensors (nested allowed) -> the same type with numpy
     leaves."""

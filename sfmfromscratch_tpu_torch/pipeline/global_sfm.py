@@ -1,0 +1,882 @@
+"""Global Structure-from-Motion engine: motion averaging instead of a chain
+(counterpart of ``sfmfromscratch_tpu/pipeline/global_sfm.py`` on the path
+its ``run()`` takes with window pairs, every image a keyframe, no streaming
+BA, no mesh and adaptive RANSAC).
+
+Stages, each batched over the whole sequence:
+
+1. features (one Harris launch per pyramid level for all images);
+2. window matching (one matcher launch for all pairs) and the adaptive
+   F-RANSAC filter on every pair;
+3. relative poses of every pair by batched adaptive essential RANSAC, then
+   Sampson refinement of every edge, and the planar-degeneracy fix;
+4. the cycle filter and connectivity repair, chordal + IRLS rotation
+   averaging, translation directions refit under the averaged rotations,
+   per-edge baseline scales from two-view depth ratios, and scaled
+   translation averaging;
+5. union-find tracks over every pair's inlier matches;
+6. multiview triangulation of every track with observation gating;
+7. the map, then ``ba_rounds`` bundle adjustments with camera 0 frozen and
+   re-gating between them.
+
+The host numpy of the view-graph stages is the JAX module's, copied as it
+stands. Device stages run on the engine's device on edge lists padded to the
+JAX engine's buckets (``_bucket(E, 128)``): rotation averaging normalises its
+weights by their mean over the padded list, so the padding is part of the
+result. Camera c observes through image c+1; camera 0 is the gauge anchor.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from sfmfromscratch_tpu_torch.config import PipelineConfig
+from sfmfromscratch_tpu_torch.geometry.averaging import (
+    chain_initial_centers,
+    chain_initial_rotations,
+    chordal_rotation_init,
+    relative_translations_known_rotations,
+    rotation_averaging,
+    translation_averaging,
+)
+from sfmfromscratch_tpu_torch.geometry.homography import (
+    _transfer_err2,
+    candidate_epipolar_rms_batch,
+    fit_homography,
+    pose_from_homography_batch,
+)
+from sfmfromscratch_tpu_torch.geometry.ransac import ransac_essential_pose_adaptive_batch
+from sfmfromscratch_tpu_torch.geometry.triangulation import triangulate_multiview, two_view_depths
+from sfmfromscratch_tpu_torch.geometry.two_view import refine_relative_pose
+from sfmfromscratch_tpu_torch.native.bindings import build_tracks
+from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
+from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+from sfmfromscratch_tpu_torch.types import Features
+
+
+def _bucket(n: int, q: int = 1024) -> int:
+    return max(q, ((n + q - 1) // q) * q)
+
+
+def _pad_edges(a: torch.Tensor, num_padded: int, template=0.0) -> torch.Tensor:
+    """Pad an (E, ...)-leading tensor to ``num_padded`` rows of ``template``
+    (zero weight, all-false masks, identity rotations: inert rows)."""
+    pad = num_padded - a.shape[0]
+    if pad <= 0:
+        return a
+    t = torch.as_tensor(np.asarray(template), dtype=a.dtype, device=a.device)
+    return torch.cat([a, t.expand((pad,) + tuple(a.shape[1:]))], dim=0)
+
+
+class GlobalSfmEngine(SfmEngine):
+    """Global SfM over an image sequence, with :class:`SfmEngine`'s result
+    contract (map, global_poses, global_K, errors, save_data).
+
+    ``device=None`` runs on the CUDA card and raises without one. Options
+    the port does not run raise ``NotImplementedError``: other pair modes,
+    keyframing, streaming BA, a mesh, the pair cache, focal
+    self-calibration, another extractor and fixed-count RANSAC.
+    """
+
+    _window_pairs_ported = True
+
+    def __init__(
+        self,
+        img_path: str,
+        max_img: int,
+        pair_window: int = 3,
+        rel_num_hypotheses: int = 1024,
+        min_edge_inliers: int = 15,
+        obs_gate_px: float = 8.0,
+        rot_avg_iters: int = 64,
+        trans_avg_iters: int = 12,
+        ba_rounds: int = 2,
+        regate_px: float = 3.0,
+        pair_mode: str = "window",
+        retrieval_k: int = 6,
+        keyframe_step: int = 1,
+        keyframe_flow_px: Optional[float] = None,
+        stream_ba_window: Optional[int] = None,
+        stream_ba_block_cams: int = 32,
+        **kwargs,
+    ):
+        if pair_mode not in ("window", "retrieval", "both"):
+            raise ValueError(f"pair_mode must be 'window', 'retrieval' or 'both', got {pair_mode!r}")
+        off_path = {
+            "pair_mode": pair_mode != "window",
+            "keyframe_step": keyframe_step != 1,
+            "stream_ba_window": stream_ba_window is not None,
+        }
+        for name, set_ in off_path.items():
+            if set_:
+                raise NotImplementedError(
+                    f"GlobalSfmEngine option {name!r} is off the ported window path")
+        self.rel_num_hypotheses = rel_num_hypotheses
+        self.min_edge_inliers = min_edge_inliers
+        self.obs_gate_px = obs_gate_px
+        self.rot_avg_iters = rot_avg_iters
+        self.trans_avg_iters = trans_avg_iters
+        self.ba_rounds = max(1, ba_rounds)
+        self.regate_px = regate_px
+        self._edges: List[tuple] = []          # (i, j) 1-based image ids, i < j
+        self._edge_R: Optional[np.ndarray] = None
+        self._edge_t: Optional[np.ndarray] = None
+        self._edge_w: Optional[np.ndarray] = None
+        self._edge_inl: Dict[tuple, np.ndarray] = {}
+        self._edge_alt: Dict[int, tuple] = {}
+        self._kp_xy: Dict[int, np.ndarray] = {}
+        self.R_cams: Optional[np.ndarray] = None   # (C, 3, 3)
+        self.c_cams: Optional[np.ndarray] = None   # (C, 3) centres
+        # Huber BA unless the caller set a delta (global_sfm.py:191-204).
+        cfg = kwargs.get("config") or PipelineConfig()
+        if cfg.ba.huber_delta == 0.0:
+            cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, huber_delta=3.0))
+        kwargs["config"] = cfg
+        super().__init__(img_path, max_img, pair_window=max(2, pair_window), **kwargs)
+
+    def _check_config(self) -> None:
+        if not self.config.ransac.adaptive:
+            raise NotImplementedError("only the adaptive RANSAC stages are ported")
+
+    def _dev(self, a, dtype=torch.float32) -> torch.Tensor:
+        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
+
+    # ------------------------------------------------------------------ stages
+
+    def _relative_poses(self) -> None:
+        """Relative pose of every matched pair by batched adaptive essential
+        RANSAC, Sampson refinement of every edge over its inlier set, the
+        planar-degeneracy fix, then edge weights and inlier sets
+        (global_sfm.py:338-476)."""
+        t0 = time.perf_counter()
+        pairs = sorted([k for k in self.pair_geometry if k[0] < k[1]],
+                       key=lambda k: (k[1] - k[0], k[0]))   # consecutive edges first
+        pgs_all = [self.pair_geometry[k] for k in pairs]
+        E = len(pairs)
+        self._edges = pairs
+        if E:
+            stack = lambda f, dt=torch.float32: self._dev(np.stack([getattr(pg, f) for pg in pgs_all]), dt)
+            p1, p2, K1, K2 = stack("p1"), stack("p2"), stack("K1"), stack("K2")
+            mask = stack("mask", torch.bool)
+            res = ransac_essential_pose_adaptive_batch(
+                self._generator, p1, p2, K1, K2, mask,
+                max_hypotheses=self.rel_num_hypotheses,
+                stage_size=min(128, self.rel_num_hypotheses),
+                threshold=self.config.ransac.epipolar_threshold,
+                confidence=self.config.ransac.prob_success, min_cheirality_frac=0.75,
+            )
+            inl_dev = res.inliers
+            R_np, t_np, inl_np, ninl_np, che_np = (
+                v.cpu().numpy() for v in (res.R, res.t, res.inliers, res.num_inliers,
+                                          res.cheirality_ok))
+            self._sync()
+            self.stage_times["relpose_ransac"] = time.perf_counter() - t0
+            inl_masks = list(inl_np)
+            ninl = ninl_np.astype(np.float64)
+            che = che_np.astype(bool)
+
+            # Sampson refinement of every edge, on the bucketed edge list.
+            Eb = _bucket(E, 128)
+            eye = np.eye(3, dtype=np.float32)
+            R_ref, t_ref, rms = refine_relative_pose(
+                _pad_edges(self._dev(R_np), Eb, eye),
+                _pad_edges(self._dev(t_np), Eb, np.asarray([0, 0, 1], np.float32)),
+                _pad_edges(p1, Eb), _pad_edges(p2, Eb),
+                _pad_edges(K1, Eb, eye), _pad_edges(K2, Eb, eye),
+                _pad_edges(inl_dev.to(torch.float32), Eb),
+            )
+            self._edge_R = R_ref[:E].cpu().numpy().astype(np.float64)
+            self._edge_t = t_ref[:E].cpu().numpy().astype(np.float64)
+            che = che & (rms[:E].cpu().numpy() < 4.0)
+            self.stage_times["relpose_refine"] = (
+                time.perf_counter() - t0 - self.stage_times["relpose_ransac"])
+            self._fix_planar_degenerate_edges(pairs, pgs_all, inl_masks, ninl, Eb)
+        else:
+            self._edge_R, self._edge_t = np.zeros((0, 3, 3)), np.zeros((0, 3))
+            inl_masks, ninl, che = [], np.zeros(0), np.zeros(0, bool)
+        good = (ninl >= self.min_edge_inliers) & che
+        if not good.any() and len(pairs):
+            good = ninl >= max(self.min_edge_inliers, 1)
+        self._edge_w = np.where(good, ninl, 0.0)
+        for e, k in enumerate(pairs):
+            self._edge_inl[k] = inl_masks[e] if good[e] else np.zeros_like(inl_masks[e])
+        self._stage_end("relative_poses", t0)
+
+    def _fix_planar_degenerate_edges(self, pairs, pgs_all, inl_masks, ninl, Eb) -> None:
+        """Replace the pose of every edge whose epipolar inliers are >= 0.8x
+        explained by one homography with its homography decomposition;
+        off-plane points pick between the two interpretations, else the
+        cheirality vote, else candidate 0 with the runner-up stashed in
+        ``_edge_alt`` for the averaging loop (global_sfm.py:478-549)."""
+        E = len(pairs)
+        self._edge_alt = {}
+        if E == 0:
+            return
+        eye = np.eye(3, dtype=np.float32)
+        stack = lambda f: self._dev(np.stack([getattr(pg, f) for pg in pgs_all]))
+        p1s = _pad_edges(stack("p1"), Eb)
+        p2s = _pad_edges(stack("p2"), Eb)
+        K1s = _pad_edges(stack("K1"), Eb, eye)
+        K2s = _pad_edges(stack("K2"), Eb, eye)
+        inls = _pad_edges(self._dev(np.stack(inl_masks), torch.bool), Eb, False)
+
+        hfit = fit_homography(p1s, p2s, inls, threshold=2.0)
+        hp = pose_from_homography_batch(hfit.H, K1s, K2s, p1s, p2s, inls)
+        e2 = _transfer_err2(hfit.H, p1s, p2s)
+        off = inls & (e2 > 4.0)
+        rms2, off_cnt = candidate_epipolar_rms_batch(hp.R, hp.t, K1s, K2s, p1s, p2s, off)
+        h_num, h_ok, R2, t2, votes, rms2_np, cnt_np = (
+            v[:E].cpu().numpy() for v in (hfit.num_inliers, hp.ok, hp.R, hp.t, hp.num_pos,
+                                          rms2, off_cnt))
+        h_num = np.asarray(h_num, np.float64)
+        degen = np.asarray(h_ok, bool) & (h_num >= 0.8 * np.maximum(ninl, 1)) & (ninl >= 12)
+        replaced, deferred = [], []
+        for e in np.nonzero(degen)[0]:
+            r = np.asarray(rms2_np[e], np.float64)
+            if cnt_np[e] >= 6 and (r.min() < 2.0) and (r.max() > 2.0 * r.min() + 1.0):
+                c = int(np.argmin(r))          # off-plane points separate
+            elif votes[e][0] > 1.05 * max(votes[e][1], 1):
+                c = 0                          # cheirality vote separates
+            else:
+                c = 0                          # ambiguous: stash the runner-up
+                self._edge_alt[e] = (np.asarray(R2[e][1], np.float64),
+                                     np.asarray(t2[e][1], np.float64))
+                deferred.append(self._edges[e])
+            self._edge_R[e] = np.asarray(R2[e][c], np.float64)
+            self._edge_t[e] = np.asarray(t2[e][c], np.float64)
+            replaced.append(self._edges[e])
+        if replaced:
+            self.warnings.append(
+                f"planar-degenerate pose-from-H on {len(replaced)} edges"
+                + (f" ({len(deferred)} twofold-ambiguous)" if deferred else "")
+            )
+
+    def _filter_edges_by_cycles(self, tau_deg: float = 3.0) -> None:
+        """Triangle (cycle) consistency filter on relative rotations with
+        greedy eviction, quarantine of unverifiable non-bridge edges, damped
+        bridges and the bridge-vs-casualties test (global_sfm.py:551-804)."""
+        E = len(self._edges)
+        if E == 0:
+            return
+        idx = {k: e for e, k in enumerate(self._edges)}
+        alive = self._edge_w > 0
+
+        def rel(e, a, b):
+            # rotation mapping frame a -> frame b along edge e=(i,j)
+            i, j = self._edges[e]
+            R = self._edge_R[e]
+            return R if (a, b) == (i, j) else R.T
+
+        succ: Dict[int, list] = {}
+        for (i, j) in idx:
+            succ.setdefault(i, []).append(j)
+        tris = []
+        for (i, j), e1 in idx.items():
+            for k in succ.get(j, ()):
+                e3 = idx.get((i, k))
+                if e3 is None:
+                    continue
+                tris.append((e1, idx[(j, k)], e3))
+
+        def tri_angle(t):
+            e1, e2, e3 = t   # (i,j), (j,k), (i,k)
+            i, j = self._edges[e1]
+            _, k = self._edges[e2]
+            M = rel(e3, i, k).T @ (rel(e2, j, k) @ rel(e1, i, j))
+            return np.degrees(np.arccos(np.clip((np.trace(M) - 1) / 2, -1, 1)))
+
+        def live_residuals():
+            return [(t, tri_angle(t)) for t in tris if all(alive[e] for e in t)]
+
+        rr = [a for _, a in live_residuals()]
+        tpe: Dict[int, int] = {}
+        for t in tris:
+            if all(alive[e] for e in t):
+                for e in t:
+                    tpe[e] = tpe.get(e, 0) + 1
+        n_alive = int(alive.sum())
+        redundant = (
+            n_alive >= 24
+            and len(tpe) >= 0.6 * n_alive
+            and float(np.median(list(tpe.values()) or [0])) >= 3
+        )
+        if not rr:
+            tau_eff = tau_deg
+        elif redundant:
+            tau_eff = max(tau_deg, 2.0 * float(np.percentile(rr, 25)))
+        else:
+            tau_eff = max(tau_deg, 1.5 * float(np.median(rr)))
+
+        removed = []
+        removed_idx: set = set()
+        accused: set = set()      # ever sat in a violated triangle
+        while True:
+            live = live_residuals()
+            if not any(a >= tau_eff for _, a in live):
+                break
+            per_edge: Dict[int, list] = {}
+            for t, a in live:
+                for e in t:
+                    per_edge.setdefault(e, []).append(a)
+            in_bad = set()
+            for t, a in live:
+                if a >= tau_eff:
+                    in_bad.update(t)
+            accused |= in_bad
+
+            def score(e):
+                return float(np.median(per_edge[e])) * np.sqrt(
+                    1.0 / max(self._edge_w[e], 1.0)
+                )
+
+            worst = min(in_bad, key=lambda e: (-score(e), self._edge_w[e]))
+            alive[worst] = False
+            removed.append(self._edges[worst])
+            removed_idx.add(worst)
+
+        in_tri = np.zeros(E, bool)
+        for t in tris:
+            if all(alive[e] for e in t):
+                for e in t:
+                    in_tri[e] = True
+        unverifiable = alive & ~in_tri & (self._edge_w > 0)
+
+        parent = np.arange(self.max_img)
+
+        def _find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        for e in np.nonzero(alive & in_tri)[0]:
+            i, j = self._edges[e]
+            parent[_find(i - 1)] = _find(j - 1)
+        damped = np.zeros(E, bool)
+        for e in sorted(np.nonzero(unverifiable)[0], key=lambda e: -self._edge_w[e]):
+            i, j = self._edges[e]
+            ri, rj = _find(i - 1), _find(j - 1)
+            if ri != rj:
+                parent[ri] = rj
+                damped[e] = True
+            else:
+                alive[e] = False
+                removed.append(self._edges[e])
+                removed_idx.add(e)
+
+        for b in np.nonzero(damped)[0]:
+            if b not in accused or not removed_idx:
+                continue
+            alive2 = alive.copy()
+            alive2[list(removed_idx)] = True
+            alive2[b] = False
+            clean_restored, bridge_clean = 0, 0
+            for t in tris:
+                a_ok = all(alive2[e] for e in t)
+                if a_ok and any(e in removed_idx for e in t):
+                    if tri_angle(t) < tau_eff:
+                        clean_restored += 1
+                if b in t and all(alive2[e] or e == b for e in t):
+                    if tri_angle(t) < tau_eff:
+                        bridge_clean += 1
+            if clean_restored >= 2 and bridge_clean == 0:
+                p2 = np.arange(self.max_img)
+
+                def _f2(x):
+                    while p2[x] != x:
+                        p2[x] = p2[p2[x]]
+                        x = p2[x]
+                    return x
+
+                for e in np.nonzero(alive2 | damped)[0]:
+                    if e == b:
+                        continue
+                    i, j = self._edges[e]
+                    p2[_f2(i - 1)] = _f2(j - 1)
+                if len({_f2(c) for c in range(self.max_img)}) == 1:
+                    restored = []
+                    for e in sorted(removed_idx):
+                        in_clean = any(
+                            e in t and all(alive2[x] for x in t)
+                            and tri_angle(t) < tau_eff
+                            for t in tris
+                        )
+                        if in_clean:
+                            alive[e] = True
+                            restored.append(self._edges[e])
+                    if restored:
+                        for k in restored:
+                            removed.remove(k)
+                        removed_idx -= {x for x in removed_idx if alive[x]}
+                        alive[b] = False
+                        damped[b] = False
+                        removed.append(self._edges[b])
+                        self.warnings.append(
+                            "bridge-vs-casualties flip: dropped "
+                            f"{self._edges[b]}, restored "
+                            + ", ".join(map(str, restored))
+                        )
+
+        if removed:
+            self.warnings.append(
+                f"cycle filter dropped {len(removed)} edges: "
+                + ", ".join(map(str, removed))
+            )
+            for e in range(E):
+                if self._edge_w[e] > 0 and not alive[e]:
+                    self._edge_inl[self._edges[e]] = np.zeros_like(
+                        self._edge_inl[self._edges[e]]
+                    )
+            self._edge_w = np.where(alive, self._edge_w, 0.0)
+        self._edge_w = np.where(damped, 0.25 * self._edge_w, self._edge_w)
+
+    def _connected(self, alive: np.ndarray) -> bool:
+        C = self.max_img
+        parent = np.arange(C)
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        for e in np.nonzero(alive)[0]:
+            i, j = self._edges[e]
+            parent[find(i - 1)] = find(j - 1)
+        return len({find(c) for c in range(C)}) == 1
+
+    def _repair_connectivity(self, w_prev: np.ndarray, inl_prev, context: str) -> None:
+        """Edge dropping must never disconnect the view graph: restore the
+        highest-prior-weight zeroed edges that bridge components, at 0.25x
+        weight (global_sfm.py:821-860)."""
+        alive = np.asarray(self._edge_w) > 0
+        if self._connected(alive):
+            return
+        C = self.max_img
+        parent = np.arange(C)
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        for e in np.nonzero(alive)[0]:
+            i, j = self._edges[e]
+            parent[find(i - 1)] = find(j - 1)
+        cand = np.nonzero(~alive & (np.asarray(w_prev) > 0))[0]
+        cand = cand[np.argsort(-np.asarray(w_prev)[cand])]
+        restored = []
+        for e in cand:
+            i, j = self._edges[e]
+            ri, rj = find(i - 1), find(j - 1)
+            if ri != rj:
+                parent[ri] = rj
+                self._edge_w[e] = 0.25 * w_prev[e]
+                if inl_prev is not None:
+                    self._edge_inl[self._edges[e]] = inl_prev[self._edges[e]].copy()
+                restored.append(self._edges[e])
+        if restored:
+            self.warnings.append(
+                f"connectivity repair ({context}): restored damped edges "
+                + ", ".join(map(str, restored))
+            )
+
+    def _motion_averaging(self) -> None:
+        """Absolute rotations and camera centres from the view graph
+        (global_sfm.py:862-1091): cycle filter and repair, chain walk +
+        chordal init, up to 4 rounds of IRLS rotation averaging with the
+        homography-ambiguity swap, cycle-casualty redemption and the
+        rotation gate, repair again, translation directions refit under the
+        averaged rotations, edge scales, walk init and translation
+        averaging."""
+        t0 = time.perf_counter()
+        C = self.max_img
+        dev = self.device
+        w_pre = np.asarray(self._edge_w, np.float64).copy()
+        inl_pre = {k: self._edge_inl[k].copy() for k in self._edges}
+        self._filter_edges_by_cycles()
+        self._repair_connectivity(w_pre, inl_pre, "cycle filter")
+        ei = np.asarray([i - 1 for i, _ in self._edges], np.int64)
+        ej = np.asarray([j - 1 for _, j in self._edges], np.int64)
+        w = np.asarray(self._edge_w, np.float32)
+        nz = w > 0
+
+        parent = np.arange(C)
+
+        def find(x):
+            while parent[x] != x:
+                parent[x] = parent[parent[x]]
+                x = parent[x]
+            return x
+
+        for a, b in zip(ei[nz], ej[nz]):
+            parent[find(a)] = find(b)
+        roots = {find(c) for c in range(C)}
+        if len(roots) > 1:
+            self.warnings.append(
+                f"view graph has {len(roots)} components; "
+                "unreached cameras keep identity poses"
+            )
+
+        E = len(self._edges)
+        Eb = _bucket(E, 128) if E else 0
+        eye = np.eye(3, dtype=np.float32)
+        ei_j = _pad_edges(self._dev(ei, torch.int64), Eb)
+        ej_j = _pad_edges(self._dev(ej, torch.int64), Eb)
+
+        def weights(w):
+            return _pad_edges(self._dev((w / max(w.max(), 1e-9)).astype(np.float32)), Eb)
+
+        w_j = weights(w)
+        R_rel = _pad_edges(self._dev(self._edge_R), Eb, eye)
+
+        R0 = chain_initial_rotations(self._edge_R[nz].astype(np.float32), ei[nz], ej[nz], C,
+                                     device=dev)
+        R0 = chordal_rotation_init(R_rel, ei_j, ej_j, R0, edge_w=w_j, num_cameras=C,
+                                   cg_iters=min(max(128, 2 * C), 4096))
+
+        R = R0
+        banned = np.zeros(E, bool)   # dropped by residual => never restored
+        for _round in range(4):
+            R = rotation_averaging(R_rel, ei_j, ej_j, R, edge_w=w_j, num_cameras=C,
+                                   num_iters=self.rot_avg_iters, eps_final=0.02)
+            R_np = R.cpu().numpy().astype(np.float64)
+            r_edge = np.linalg.norm(
+                np.einsum("eij,ejk->eik", self._edge_R, R_np[ei]) - R_np[ej], axis=(1, 2))
+            if not nz.any():
+                break
+            swapped = []
+            for e, (R_a, t_a) in list(self._edge_alt.items()):
+                r_alt = np.linalg.norm(R_a @ R_np[ei[e]] - R_np[ej[e]])
+                if r_alt < 0.7 * r_edge[e]:
+                    self._edge_R[e] = R_a
+                    self._edge_t[e] = t_a
+                    r_edge[e] = r_alt
+                    del self._edge_alt[e]
+                    swapped.append(self._edges[e])
+            if swapped:
+                R_rel = _pad_edges(self._dev(self._edge_R), Eb, eye)
+                self.warnings.append(
+                    "homography-ambiguity swap on edges: " + ", ".join(map(str, swapped)))
+            med = np.median(r_edge[nz])
+            gate = max(4.0 * med, 0.15)
+            cand = (~nz) & (w_pre > 0) & (r_edge < 0.5 * gate) & ~banned
+            bad = nz & (r_edge > gate)
+            if not bad.any() and not cand.any():
+                break
+            if cand.any():
+                self.warnings.append(
+                    f"restored {int(cand.sum())} cycle-filter casualties: "
+                    + ", ".join(str(self._edges[e]) for e in np.nonzero(cand)[0])
+                )
+                w = np.where(cand, w_pre, w)
+                for e in np.nonzero(cand)[0]:
+                    k = self._edges[e]
+                    self._edge_inl[k] = inl_pre[k]
+                self._edge_w = np.where(cand, w_pre, self._edge_w)
+            if bad.any():
+                self.warnings.append(
+                    f"dropped {int(bad.sum())} rotation-inconsistent edges: "
+                    + ", ".join(str(self._edges[e]) for e in np.nonzero(bad)[0])
+                )
+                banned |= bad
+                w = np.where(bad, 0.0, w)
+                for e in np.nonzero(bad)[0]:
+                    k = self._edges[e]
+                    self._edge_inl[k] = np.zeros_like(self._edge_inl[k])
+                self._edge_w = np.where(bad, 0.0, self._edge_w)
+            nz = w > 0
+            w_j = weights(w)
+
+        self._repair_connectivity(w_pre, inl_pre, "rotation gate")
+        w = np.asarray(self._edge_w, np.float64)
+        nz = w > 0
+        w_j = weights(w)
+
+        t_pad = None
+        if E:
+            R_ij_avg = R[ej_j] @ R[ei_j].transpose(-1, -2)
+            pgs = [self.pair_geometry[k] for k in self._edges]
+            stack = lambda f: self._dev(np.stack([getattr(pg, f) for pg in pgs]))
+            p1s = _pad_edges(stack("p1"), Eb)
+            p2s = _pad_edges(stack("p2"), Eb)
+            K1s = _pad_edges(stack("K1"), Eb, eye)
+            K2s = _pad_edges(stack("K2"), Eb, eye)
+            inls = _pad_edges(
+                self._dev(np.stack([self._edge_inl[k] for k in self._edges]), torch.bool),
+                Eb, False)
+            t_new, conf = relative_translations_known_rotations(R_ij_avg, p1s, p2s, K1s, K2s, inls)
+            self._edge_t = t_new[:E].cpu().numpy()
+            w = w * np.clip(conf[:E].cpu().numpy().astype(np.float64), 0.0, 1.0)
+            nz = w > 0
+            w_j = weights(w)
+
+        Rj = R[ej_j]
+        t_pad = _pad_edges(self._dev(self._edge_t), Eb, np.asarray([0, 0, 1], np.float32))
+        u = torch.einsum("eji,ej->ei", Rj, t_pad)
+        u = u / torch.clamp_min(torch.linalg.norm(u, dim=-1, keepdim=True), 1e-9)
+        u_np = u.cpu().numpy()[:E]
+
+        if E:
+            z1, z2 = two_view_depths(R_ij_avg, t_pad, p1s, p2s, K1s, K2s)
+            lam = self._edge_scales(z1.cpu().numpy()[:E], z2.cpu().numpy()[:E], nz)
+        else:
+            lam = np.ones(0)
+
+        su = u_np * lam[:, None]
+        c0 = chain_initial_centers(su[nz].astype(np.float32), ei[nz], ej[nz], C, device=dev)
+        c = translation_averaging(
+            u, ei_j, ej_j, c0, edge_w=w_j, num_cameras=C, num_iters=self.trans_avg_iters,
+            edge_s=_pad_edges(self._dev(lam), Eb, 1.0),
+        )
+        self.R_cams, self.c_cams = R.cpu().numpy(), c.cpu().numpy()
+        self._stage_end("motion_averaging", t0)
+
+    def _edge_scales(self, z1: np.ndarray, z2: np.ndarray, nz: np.ndarray) -> np.ndarray:
+        """Relative baseline length per edge from two-view depth ratios along
+        shared keypoints: median log-ratios, spanning-tree propagation and
+        Gauss-Seidel smoothing; weighted mean 1 (global_sfm.py:1093-1170)."""
+        E = len(self._edges)
+        pair_idx = {k: (self.pair_geometry[k].idx1, self.pair_geometry[k].idx2)
+                    for k in self._edges}
+        incident: Dict[int, list] = {}
+        for e, k in enumerate(self._edges):
+            if not nz[e]:
+                continue
+            inl = self._edge_inl[k]
+            if not inl.any():
+                continue
+            i, j = k
+            idx1, idx2 = pair_idx[k]
+            incident.setdefault(i, []).append((e, np.asarray(idx1)[inl], z1[e][inl]))
+            incident.setdefault(j, []).append((e, np.asarray(idx2)[inl], z2[e][inl]))
+
+        ratios: list = []          # (e1, e2, median log(z_e1 / z_e2), support)
+        for m, lst in incident.items():
+            for a in range(len(lst)):
+                ea, kpa, za = lst[a]
+                for b in range(a + 1, len(lst)):
+                    eb, kpb, zb = lst[b]
+                    common, ia, ib = np.intersect1d(kpa, kpb, return_indices=True)
+                    if len(common) < 5:
+                        continue
+                    r = za[ia] / np.where(np.abs(zb[ib]) < 1e-9, 1e-9, zb[ib])
+                    r = r[np.isfinite(r) & (r > 0)]
+                    if len(r) < 5:
+                        continue
+                    ratios.append((ea, eb, float(np.median(np.log(r))), len(r)))
+
+        log_lam = np.zeros(E)
+        if ratios:
+            adj: Dict[int, list] = {}
+            for ea, eb, lr, wgt in ratios:
+                adj.setdefault(ea, []).append((eb, lr, wgt))
+                adj.setdefault(eb, []).append((ea, -lr, wgt))
+            seen = set()
+            order = sorted(adj, key=lambda e: -self._edge_w[e])
+            for root in order:
+                if root in seen:
+                    continue
+                seen.add(root)
+                queue = [root]
+                while queue:
+                    cur = queue.pop()
+                    for nxt, lr, _ in adj[cur]:
+                        if nxt not in seen:
+                            log_lam[nxt] = log_lam[cur] + lr
+                            seen.add(nxt)
+                            queue.append(nxt)
+            for _sweep in range(10):   # weighted Gauss-Seidel on the ratio graph
+                acc = np.zeros(E)
+                wacc = np.zeros(E)
+                for ea, eb, lr, wgt in ratios:
+                    acc[eb] += wgt * (log_lam[ea] + lr)
+                    wacc[eb] += wgt
+                    acc[ea] += wgt * (log_lam[eb] - lr)
+                    wacc[ea] += wgt
+                upd = wacc > 0
+                log_lam[upd] = acc[upd] / wacc[upd]
+
+        lam = np.exp(np.clip(log_lam, -6.0, 6.0))
+        wsum = self._edge_w[nz].sum()
+        if wsum > 0:
+            lam /= max((lam[nz] * self._edge_w[nz]).sum() / wsum, 1e-9)
+        return lam
+
+    def _build_tracks(self, feats: Features) -> None:
+        """Union-find tracks over every pair's inlier matches, then flat
+        observation lists from the keypoint table (global_sfm.py:1172-1234)."""
+        t0 = time.perf_counter()
+        C = self.max_img
+        cap = feats.keypoints.capacity
+        xf_np, yf_np = feats.keypoints.xf.cpu().numpy(), feats.keypoints.yf.cpu().numpy()
+        self._kp_xy = {i: np.stack([xf_np[i - 1], yf_np[i - 1]], axis=1).astype(np.float64)
+                       for i in range(1, C + 1)}
+
+        ea, eb = [], []
+        for k in self._edges:
+            inl = self._edge_inl[k]
+            if not inl.any():
+                continue
+            i, j = k
+            pg = self.pair_geometry[k]
+            ea.append((i - 1) * cap + np.asarray(pg.idx1)[inl])
+            eb.append((j - 1) * cap + np.asarray(pg.idx2)[inl])
+        ea = np.concatenate(ea) if ea else np.zeros(0, np.int64)
+        eb = np.concatenate(eb) if eb else np.zeros(0, np.int64)
+
+        node_image = np.repeat(np.arange(C, dtype=np.int64), cap)
+        track_per_node, num_tracks, valid = build_tracks(ea, eb, C * cap, node_image=node_image)
+
+        touched = np.zeros(C * cap, bool)
+        touched[ea] = True
+        touched[eb] = True
+        nodes = np.nonzero(touched)[0]
+        tids = track_per_node[nodes]
+        keep = valid[tids] if valid is not None else np.ones(len(nodes), bool)
+        counts = np.bincount(tids[keep], minlength=num_tracks)
+        keep &= counts[tids] >= 2
+        nodes, tids = nodes[keep], tids[keep]
+
+        uniq, tids_c = np.unique(tids, return_inverse=True)
+        self._num_points = len(uniq)
+        self._obs_cam = (nodes // cap).astype(np.int32)
+        self._obs_kp = (nodes % cap).astype(np.int32)
+        self._obs_pt = tids_c.astype(np.int32)
+        xy = np.empty((len(nodes), 2), np.float64)
+        for i in range(1, C + 1):
+            m = self._obs_cam == (i - 1)
+            xy[m] = self._kp_xy[i][self._obs_kp[m]]
+        self._obs_xy = xy
+        self._stage_end("tracks", t0)
+
+    def _triangulate(self) -> None:
+        """Every track triangulated at once by multiview DLT + GN on the
+        device (on the JAX engine's bucketed lists), then observations gated
+        on the host by cheirality and reprojection error
+        (global_sfm.py:1236-1288)."""
+        t0 = time.perf_counter()
+        C = self.max_img
+        K = np.stack([self._intrinsics(i) for i in range(1, C + 1)])
+        R = np.asarray(self.R_cams, np.float64)
+        tvec = -np.einsum("cij,cj->ci", R, np.asarray(self.c_cams, np.float64))
+        P = K @ np.concatenate([R, tvec[:, :, None]], axis=2)   # (C, 3, 4)
+        self._P_all = P
+        self._K_all = K
+        self._t_cams = tvec
+
+        O = len(self._obs_pt)
+        T = self._num_points
+        if T == 0:
+            self._X = np.zeros((0, 3))
+            self._stage_end("triangulate", t0)
+            return
+        Ob, Tb = _bucket(O), _bucket(T)
+        obs_cam = np.zeros(Ob, np.int64); obs_cam[:O] = self._obs_cam
+        obs_pt = np.full(Ob, Tb - 1, np.int64); obs_pt[:O] = self._obs_pt
+        obs_xy = np.zeros((Ob, 2), np.float32); obs_xy[:O] = self._obs_xy
+        w = np.zeros(Ob, np.float32); w[:O] = 1.0
+        X, _nobs = triangulate_multiview(
+            self._dev(P), self._dev(obs_cam, torch.int64), self._dev(obs_pt, torch.int64),
+            self._dev(obs_xy), num_points=Tb, obs_w=self._dev(w), gn_iters=8,
+        )
+        X = X.cpu().numpy().astype(np.float64)[:T]
+
+        Xo = X[self._obs_pt]
+        Ph = P[self._obs_cam]
+        h = np.einsum("oij,oj->oi", Ph[:, :, :3], Xo) + Ph[:, :, 3]
+        z = h[:, 2]
+        uv = h[:, :2] / np.where(np.abs(z[:, None]) < 1e-12, 1e-12, z[:, None])
+        err = np.linalg.norm(uv - self._obs_xy, axis=1)
+        ok = (z > 1e-6) & (err < self.obs_gate_px)
+        cnt = np.bincount(self._obs_pt[ok], minlength=T)
+        ok &= cnt[self._obs_pt] >= 2
+
+        uniq, pt_c = np.unique(self._obs_pt[ok], return_inverse=True)
+        self._obs_cam = self._obs_cam[ok]
+        self._obs_kp = self._obs_kp[ok]
+        self._obs_pt = pt_c.astype(np.int32)
+        self._obs_xy = self._obs_xy[ok]
+        self._X = X[uniq]
+        self._num_points = len(uniq)
+        self._stage_end("triangulate", t0)
+
+    def _populate_map(self) -> None:
+        """Fill the map and pose lists with the incremental engine's result
+        contract (global_sfm.py:1290-1308)."""
+        C = self.max_img
+        self.map.append_points_raw(self._X)
+        for c in range(C):
+            m = self._obs_cam == c
+            if m.any():
+                self.map.add_observations(self._obs_pt[m].astype(np.int64), self._obs_xy[m], c)
+        rvecs = so3_log(self._dev(self.R_cams)).cpu().numpy().astype(np.float64)
+        for c in range(C):
+            self.global_poses.append((rvecs[c], self._t_cams[c]))
+            self.global_K.append(self._K_all[c])
+
+    def _regate_observations(self) -> int:
+        """Drop observations whose residual under the post-BA model exceeds
+        ``regate_px`` and tracks left with < 2 observations, then rebuild the
+        map; returns the number dropped (global_sfm.py:1551-1593)."""
+        frames, tracks, xy = self.map.observations()
+        pts = self.map.points()
+        rvs = np.stack([rv for rv, _ in self.global_poses])
+        Rs = so3_exp(self._dev(rvs)).cpu().numpy().astype(np.float64)
+        P = np.empty((len(self.global_poses), 3, 4))
+        for c, (rv, t) in enumerate(self.global_poses):
+            P[c] = self.global_K[c] @ np.concatenate([Rs[c], np.asarray(t)[:, None]], 1)
+        Po = P[frames]
+        h = np.einsum("oij,oj->oi", Po[:, :, :3], pts[tracks]) + Po[:, :, 3]
+        z = np.where(np.abs(h[:, 2]) < 1e-12, 1e-12, h[:, 2])
+        err = np.linalg.norm(h[:, :2] / z[:, None] - xy, axis=1)
+        ok = (h[:, 2] > 1e-6) & (err < self.regate_px)
+        cnt = np.bincount(tracks[ok], minlength=len(pts))
+        ok &= cnt[tracks] >= 2
+        dropped = int((~ok).sum())
+        if dropped == 0:
+            return 0
+        uniq, tr_c = np.unique(tracks[ok], return_inverse=True)
+        new_map = type(self.map)()
+        new_map.append_points_raw(pts[uniq])
+        fr = frames[ok]
+        xy_k = xy[ok]
+        for c in range(len(self.global_poses)):
+            m = fr == c
+            if m.any():
+                new_map.add_observations(tr_c[m].astype(np.int64), xy_k[m], c)
+        self.map = new_map
+        return dropped
+
+    # ------------------------------------------------------------------ run
+
+    def run(self) -> "GlobalSfmEngine":
+        t0 = time.perf_counter()
+        feats = self._extract_all_features()
+        self._match_pairs(feats)
+        self._relative_poses()
+        self._motion_averaging()
+        self._build_tracks(feats)
+        self._triangulate()
+        self._populate_map()
+        # Camera 0 frozen: the averaging gauge (R=I, c=0) anchors BA.
+        err_before = None
+        for r in range(self.ba_rounds):
+            t_r = time.perf_counter()
+            self._global_ba(freeze_before=1)
+            self.stage_times[f"ba.round{r + 1}"] = time.perf_counter() - t_r
+            if err_before is None:
+                err_before = self.errors_before_after_ba[0]
+            if r < self.ba_rounds - 1 and self._regate_observations() == 0:
+                break
+        self.errors_before_after_ba = (err_before, self.errors_before_after_ba[1])
+        self.stage_times["total"] = time.perf_counter() - t0
+        if self.model_name is not None:
+            self.save_data()
+        return self

@@ -16,9 +16,14 @@ The stages run back to back on the device, with their state there:
 * one fetch of the front's results to the host map, then one global LM
   bundle adjustment.
 
-The host reads values only where control needs them: the adaptive RANSAC
-and LM stopping rules, and the fetches. Options the JAX engine offers off
-this path raise ``NotImplementedError``.
+With ``chain_refresh="averaging"`` the chain's poses are refreshed by motion
+averaging over the map's own tracks (``pipeline/chain_refresh.py``) before
+the BA. The host reads values only where control needs them: the adaptive
+RANSAC and LM stopping rules, and the fetches. Options the JAX engine offers
+off these paths raise ``NotImplementedError``.
+
+``_candidate_pairs``, ``_match_pairs`` and ``_global_ba(freeze_before=...)``
+serve ``GlobalSfmEngine`` (``pipeline/global_sfm.py``), which inherits them.
 """
 
 from __future__ import annotations
@@ -43,6 +48,7 @@ from sfmfromscratch_tpu_torch.geometry.triangulation import refine_points_gn, tr
 from sfmfromscratch_tpu_torch.io.images import load_image_u8
 from sfmfromscratch_tpu_torch.ops.lie import so3_log
 from sfmfromscratch_tpu_torch.ops.matcher import match_pairs_batch
+from sfmfromscratch_tpu_torch.pipeline.chain_refresh import averaging_refresh
 from sfmfromscratch_tpu_torch.pipeline.frontend import extract_features_batch, preprocess_image_batch
 from sfmfromscratch_tpu_torch.pipeline.tracks import MapStore
 from sfmfromscratch_tpu_torch.types import Features, PairGeometry
@@ -181,6 +187,10 @@ class SfmEngine:
     differs from the JAX engine's as one RANSAC seed differs from another.
     """
 
+    # Window pairs (pair_window > 1) need the host chain's window linking;
+    # the global engine, which has no chain, takes them.
+    _window_pairs_ported = False
+
     def __init__(
         self,
         img_path: str,
@@ -212,29 +222,29 @@ class SfmEngine:
             "checkpoint_every": checkpoint_every is not None or checkpoint_path is not None,
             "mesh": mesh is not None,
             "chain_mode": chain_mode == "host",
-            "pair_window": int(pair_window) != 1,
+            "pair_window": int(pair_window) != 1 and not self._window_pairs_ported,
             "local_ba_every": local_ba_every is not None,
             "feature_extractor": feature_extractor is not None,
             "pair_cache_dir": bool(pair_cache_dir),
             "refine_focal": bool(refine_focal),
-            "chain_refresh": chain_refresh is not None,
         }
         for name, set_ in off_path.items():
             if set_:
                 raise NotImplementedError(
-                    f"SfmEngine option {name!r} is off the default path and is not ported")
+                    f"{type(self).__name__} option {name!r} is off the ported paths")
         if chain_mode not in ("auto", "scan"):
             raise ValueError(f"chain_mode must be 'auto', 'scan' or 'host', got {chain_mode!r}")
+        if chain_refresh not in (None, "averaging"):
+            raise ValueError(f"chain_refresh must be None or 'averaging', got {chain_refresh!r}")
         if max_img < 3:
             raise NotImplementedError(
                 "the port's engine needs 3 images or more; reconstruct_two_view covers 2")
         self.img_path = img_path
         self.max_img = max_img
         self.config = config or PipelineConfig()
-        if self.config.ransac.pnp_solver != "p3p":
-            raise NotImplementedError("only the P3P PnP solver is ported")
-        if not self.config.ransac.adaptive:
-            raise NotImplementedError("only the adaptive RANSAC stages are ported")
+        self._check_config()
+        self.pair_window = max(1, int(pair_window))
+        self.chain_refresh = chain_refresh
         self.single_K = single_K
         self.camera_sensor = camera_sensor
         self.model_name = model_name
@@ -261,6 +271,12 @@ class SfmEngine:
         if auto_run:
             self.run()
 
+    def _check_config(self) -> None:
+        if self.config.ransac.pnp_solver != "p3p":
+            raise NotImplementedError("only the P3P PnP solver is ported")
+        if not self.config.ransac.adaptive:
+            raise NotImplementedError("only the adaptive RANSAC stages are ported")
+
     # ------------------------------------------------------------------ utils
 
     def _image_file(self, idx: int) -> str:
@@ -279,10 +295,11 @@ class SfmEngine:
             torch.cuda.synchronize(self.device)
 
     def _stage_end(self, name: str, t0: float) -> float:
-        """Close stage ``name`` at a device synchronize; returns the time."""
+        """Close stage ``name`` at a device synchronize (its time adds to an
+        earlier one of the same name); returns the time."""
         self._sync()
         t = time.perf_counter()
-        self.stage_times[name] = t - t0
+        self.stage_times[name] = self.stage_times.get(name, 0.0) + t - t0
         return t
 
     # ------------------------------------------------------------------ stages
@@ -396,10 +413,59 @@ class SfmEngine:
             self.global_poses.append((np.asarray(rvecs[f], np.float64), np.asarray(ts[f], np.float64)))
             self.global_K.append(np.asarray(K_host[f + 2], np.float64))
 
-    def _global_ba(self) -> None:
-        """Global bundle adjustment on the device over every camera and track
-        (``incremental.py:1381-1469``), on the JAX package's padded problem
-        so the same Schur backend is chosen."""
+    def _candidate_pairs(self, feats: Features) -> List[Tuple[int, int]]:
+        """Image pairs to match: the sequential window of ``pair_window``
+        (``incremental.py:640-648``)."""
+        return [
+            (i1, i2)
+            for i1 in range(1, self.max_img)
+            for i2 in range(i1 + 1, min(i1 + self.pair_window, self.max_img) + 1)
+        ]
+
+    def _match_pairs(self, feats: Features) -> None:
+        """Matching and F-RANSAC filtering of every candidate pair
+        (``incremental.py:666-840`` without the pair cache and the shards):
+        one matcher launch for all pairs, the batched adaptive F-RANSAC
+        filter on the device, one fetch, then ``pair_geometry`` of numpy
+        arrays in both directions, each pair's mask the filter's
+        (``global_sfm.py:107-115``)."""
+        dev = self.device
+        rcfg = self.config.ransac
+        mcfg = self.config.matcher
+        t0 = time.perf_counter()
+        pairs = self._candidate_pairs(feats)
+        pi = torch.tensor([k[0] - 1 for k in pairs], device=dev)
+        pj = torch.tensor([k[1] - 1 for k in pairs], device=dev)
+        res, p1, p2 = match_pairs_batch(
+            feats.descriptors, feats.keypoints.mask, feats.keypoints.xf, feats.keypoints.yf,
+            pi, pj, ratio_threshold=mcfg.ratio_threshold, max_matches=mcfg.max_matches,
+        )
+        t0 = self._stage_end("matching", t0)
+        fres = ransac_fundamental_adaptive_batch(
+            self._generator, p1, p2, res.mask, max_hypotheses=rcfg.max_hypotheses(),
+            stage_size=rcfg.stage_size, threshold=rcfg.epipolar_threshold,
+            confidence=rcfg.prob_success,
+        )
+        self.filter_hyps_used = fres.hyps_used.cpu().numpy()
+        idx_np, p1_np, p2_np, filt_np = (
+            v.cpu().numpy() for v in (res.indices, p1, p2, fres.inliers))
+        for row, (i1, i2) in enumerate(pairs):
+            mask = filt_np[row]   # the global engine filters every pair
+            K1 = np.asarray(self._intrinsics(i1), np.float32)
+            K2 = np.asarray(self._intrinsics(i2), np.float32)
+            idx1 = idx_np[row, :, 0].astype(np.int32)
+            idx2 = idx_np[row, :, 1].astype(np.int32)
+            self.pair_geometry[(i1, i2)] = PairGeometry(
+                p1=p1_np[row], p2=p2_np[row], idx1=idx1, idx2=idx2, mask=mask, K1=K1, K2=K2)
+            self.pair_geometry[(i2, i1)] = PairGeometry(
+                p1=p2_np[row], p2=p1_np[row], idx1=idx2, idx2=idx1, mask=mask, K1=K2, K2=K1)
+        self._stage_end("filter", t0)
+
+    def _global_ba(self, freeze_before: int = 0) -> None:
+        """Bundle adjustment on the device over every camera and track
+        (``incremental.py:1381-1469``), cameras [0, freeze_before) frozen, on
+        the JAX package's padded problem so the same Schur backend is
+        chosen. Its time adds to ``stage_times["ba"]``."""
         t0 = time.perf_counter()
         frames, tracks, xy = self.map.observations()
         cam_params = np.array([np.hstack([rv, t]) for rv, t in self.global_poses])
@@ -407,7 +473,7 @@ class SfmEngine:
         num_pts = self.map.num_tracks
         problem = pad_problem(make_problem(
             cam_params, self.map.points(), frames, tracks, xy, np.stack(self.global_K),
-            device=self.device,
+            cam_fixed=np.arange(num_cams) < freeze_before, device=self.device,
         ))
         ba = self.config.ba
         res = bundle_adjust(
@@ -430,6 +496,8 @@ class SfmEngine:
         t0 = time.perf_counter()
         feats = self._extract_all_features()
         self._run_front(feats)
+        if self.chain_refresh == "averaging":
+            averaging_refresh(self)
         self._global_ba()
         self.stage_times["total"] = time.perf_counter() - t0
         if self.model_name is not None:

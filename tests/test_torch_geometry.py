@@ -362,3 +362,211 @@ def test_hypotheses_needed_matches_jax():
     ref = _np(jransac._hypotheses_needed(jnp.asarray(cnt), jnp.asarray(nv), 8, 0.98))
     got = _np(transac._hypotheses_needed(_t(cnt), _t(nv), 8, 0.98))
     np.testing.assert_allclose(got, ref, rtol=1e-6)
+
+
+def test_ransac_essential_pose_adaptive_batch_with_jax_uniforms():
+    """The batched adaptive relative-pose RANSAC of the global engine, 4
+    pairs with 5-55% outliers and each its own intrinsics, every lane on the
+    uniforms its JAX key draws stage by stage: identical inlier sets and
+    strictness per lane; the pose from the LO refit's float32 SVD, rotation
+    within 0.1 deg and translation direction within 2e-3. The lanes stop at
+    different stages, so finished lanes must freeze while others draw: the
+    55% lane finds no support beyond the minimal sample and ends by the
+    futility rule, in both packages."""
+    p1, p2, m, sc = _noisy_pairs([0.05, 0.2, 0.4, 0.55])
+    K, = _f32(sc["K"])
+    # Per-lane intrinsics: the same camera, the pixels rescaled per lane.
+    s = np.array([1.0, 0.9, 1.1, 1.05], np.float32)
+    Ks = np.stack([np.diag([f, f, 1.0]).astype(np.float32) @ K for f in s])
+    p1, p2 = p1 * s[:, None, None], p2 * s[:, None, None]
+    P, S, cap = 4, 64, 1024
+    keys = jax.random.split(jax.random.key(14), P)
+    kw = dict(max_hypotheses=cap, stage_size=S, threshold=1.0, min_cheirality_frac=0.75)
+    ref = jransac.ransac_essential_pose_adaptive_batch(
+        keys, jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(Ks), jnp.asarray(Ks), jnp.asarray(m),
+        **kw)
+    u = np.stack([_jax_stage_uniforms(k, cap // S, S, 8) for k in keys])
+    got = transac.ransac_essential_pose_adaptive_batch(
+        None, _t(p1), _t(p2), _t(Ks), _t(Ks), _t(m, torch.bool), uniforms=_t(u), **kw)
+    np.testing.assert_array_equal(_np(got.inliers), _np(ref.inliers))
+    np.testing.assert_array_equal(_np(got.num_inliers), _np(ref.num_inliers))
+    np.testing.assert_array_equal(_np(got.cheirality_ok), _np(ref.cheirality_ok))
+    for b in range(P):
+        assert _rot_deg(_np(got.R)[b], _np(ref.R)[b]) < 0.1
+        np.testing.assert_allclose(_np(got.t)[b], _np(ref.t)[b], atol=2e-3)
+    assert max(_rot_deg(_np(got.R)[b], sc["R2"]) for b in range(3)) < 1.0
+    assert int(got.num_inliers[3]) < 12
+    # The stage counts differ between lanes: a lane run alone stops as in the batch.
+    one = transac.ransac_essential_pose_adaptive(
+        None, _t(p1[3]), _t(p2[3]), _t(Ks[3]), _t(Ks[3]), _t(m[3], torch.bool), uniforms=_t(u[3]),
+        cheirality_subset=512, **kw)
+    np.testing.assert_array_equal(_np(one.inliers), _np(ref.inliers)[3])
+
+
+# --- geometry/two_view.py ----------------------------------------------------
+
+def _rand_rot(r, scale):
+    ax = r.normal(size=3)
+    ax /= np.linalg.norm(ax)
+    th = r.uniform(0, scale)
+    W = np.array([[0, -ax[2], ax[1]], [ax[2], 0, -ax[0]], [-ax[1], ax[0], 0]])
+    return np.eye(3) + np.sin(th) * W + (1 - np.cos(th)) * W @ W
+
+
+def _edge_set(E=6, N=80, seed=40):
+    """E two-view edges with 0.5 px noise, perturbed initial poses (about 1
+    deg, 3 deg of direction) and a tenth of each mask off; one edge with 4
+    correspondences (left unchanged) and one padded edge (all-false mask)."""
+    r = np.random.default_rng(seed)
+    K = np.array([[300.0, 0, 160], [0, 300.0, 120], [0, 0, 1]])
+    R0, t0, P1, P2, M = [], [], [], [], []
+    for _ in range(E):
+        R = _rand_rot(r, 0.15)
+        t = r.normal(size=3)
+        t /= np.linalg.norm(t)
+        X = np.column_stack([r.uniform(-2, 2, N), r.uniform(-2, 2, N), r.uniform(4, 8, N)])
+        x1 = X @ K.T
+        x2 = (X @ R.T + t) @ K.T
+        P1.append(x1[:, :2] / x1[:, 2:] + r.normal(0, 0.5, (N, 2)))
+        P2.append(x2[:, :2] / x2[:, 2:] + r.normal(0, 0.5, (N, 2)))
+        R0.append(_rand_rot(r, 0.02) @ R)
+        tp = t + 0.05 * r.normal(size=3)
+        t0.append(tp / np.linalg.norm(tp))
+        M.append(r.uniform(size=N) > 0.1)
+    M[-2][:] = False
+    M[-2][:4] = True
+    M[-1][:] = False
+    return _f32(R0, t0, P1, P2, [K] * E, [K] * E) + (np.array(M),)
+
+
+def test_refine_relative_pose_matches_jax():
+    """Batched Sampson Gauss-Newton (8 steps, jacfwd Jacobians vmapped over
+    edges) from the same start: R, t and the final RMS within 1e-4 (float32
+    5x5 solves by two LAPACK paths; measured 5e-5); an edge with under 5
+    correspondences and a padded edge pass through unchanged."""
+    from sfmfromscratch_tpu.geometry import two_view as jtv
+    from sfmfromscratch_tpu_torch.geometry import two_view as ttv
+
+    args = _edge_set()
+    ref = jtv.refine_relative_pose(*(jnp.asarray(a) for a in args))
+    got = ttv.refine_relative_pose(*(_t(a, torch.bool if a.dtype == bool else torch.float32)
+                                     for a in args))
+    assert all(g.dtype == torch.float32 for g in got)
+    for g, rf in zip(got, ref):
+        np.testing.assert_allclose(_np(g), _np(rf), atol=1e-4)
+    np.testing.assert_array_equal(_np(got[0])[-2:], args[0][-2:])
+    np.testing.assert_array_equal(_np(got[1])[-2:], args[1][-2:])
+    e1, e2 = ttv._tangent_basis(_t(args[1][0]))
+    basis = np.stack([args[1][0], _np(e1), _np(e2)])
+    np.testing.assert_allclose(basis @ basis.T, np.eye(3), atol=1e-6)
+
+
+# --- geometry/triangulation.py: multiview -----------------------------------
+
+def test_triangulate_multiview_matches_jax():
+    """Multiview DLT + 8 GN steps over a flat observation list of 5 cameras
+    (tracks of 1 to 5 observations, 0.5 px noise) padded as the global engine
+    pads it (zero-weight observations on a spare track): points within 1e-4
+    of the scene scale (the farthest depth), observation counts equal, a
+    1-observation track left at its DLT point."""
+    r = np.random.default_rng(41)
+    C, T = 5, 120
+    K = np.array([[400.0, 0, 200], [0, 400.0, 150], [0, 0, 1]])
+    P = []
+    for c in range(C):
+        R = _rand_rot(r, 0.1)
+        t = np.array([-0.3 * c, 0.05 * r.normal(), 0.02 * r.normal()])
+        P.append(K @ np.hstack([R, t[:, None]]))
+    P = np.stack(P)
+    X = np.column_stack([r.uniform(-2, 2, T), r.uniform(-1.5, 1.5, T), r.uniform(5, 9, T)])
+    cam, pt, xy = [], [], []
+    for k in range(T):
+        for c in sorted(r.choice(C, 1 + k % C, replace=False)):
+            h = P[c] @ np.append(X[k], 1.0)
+            cam.append(c)
+            pt.append(k)
+            xy.append(h[:2] / h[2] + r.normal(0, 0.5, 2))
+    O, Ob, Tb = len(cam), 1024, T + 8
+    obs_cam = np.zeros(Ob, np.int32); obs_cam[:O] = cam
+    obs_pt = np.full(Ob, Tb - 1, np.int32); obs_pt[:O] = pt
+    obs_xy = np.zeros((Ob, 2), np.float32); obs_xy[:O] = xy
+    w = np.zeros(Ob, np.float32); w[:O] = 1.0
+    P32 = P.astype(np.float32)
+    Xj, nj = jtri.triangulate_multiview(jnp.asarray(P32), jnp.asarray(obs_cam), jnp.asarray(obs_pt),
+                                        jnp.asarray(obs_xy), num_points=Tb, obs_w=jnp.asarray(w),
+                                        gn_iters=8)
+    Xt, nt = ttri.triangulate_multiview(_t(P32), _t(obs_cam, torch.int64), _t(obs_pt, torch.int64),
+                                        _t(obs_xy), num_points=Tb, obs_w=_t(w), gn_iters=8)
+    np.testing.assert_array_equal(_np(nt), _np(nj))
+    scale = float(X[:, 2].max())
+    multi = _np(nj)[:T] >= 2
+    np.testing.assert_allclose(_np(Xt)[:T][multi] / scale, _np(Xj)[:T][multi] / scale, atol=1e-4)
+    assert np.median(np.abs(_np(Xt)[:T][multi] - X[multi])) < 0.05   # 0.5 px noise at 5-9 m
+    single = np.nonzero(~multi[:T])[0]
+    assert len(single) > 0
+    X1, _ = ttri.triangulate_multiview(_t(P32), _t(obs_cam, torch.int64), _t(obs_pt, torch.int64),
+                                       _t(obs_xy), num_points=Tb, obs_w=_t(w), gn_iters=0)
+    np.testing.assert_array_equal(_np(Xt)[single], _np(X1)[single])
+
+
+# --- geometry/homography.py -------------------------------------------------
+
+def _planar_edges(seed=42):
+    from tests.test_homography import K, _scene
+
+    r = np.random.default_rng(seed)
+    scenes = [_scene(r, n_plane=130 - n_off, n_off=n_off, noise=0.2) for n_off in (0, 30, 15)]
+    p1 = np.stack([s[0] for s in scenes]).astype(np.float32)
+    p2 = np.stack([s[1] for s in scenes]).astype(np.float32)
+    m = np.ones(p1.shape[:2], bool)
+    m[2, -10:] = False
+    return p1, p2, m, np.stack([K] * 3).astype(np.float32)
+
+
+def test_homography_matches_jax():
+    """The planar-degeneracy tools of the global engine on 3 noisy
+    plane-dominant edges (0, 30 and 15 of 130 points off the plane): H within 1e-4 up to
+    scale and sign (unit Frobenius norm), the same symmetric-transfer inlier
+    counts; the 8 Faugeras candidates equal as sets (SVD signs order them
+    freely); the two selected poses within 1e-3 rad with the same votes and
+    ``ok``; the off-plane epipolar RMS within 1e-3 px of JAX's."""
+    from sfmfromscratch_tpu.geometry import homography as jh
+    from sfmfromscratch_tpu_torch.geometry import homography as th
+
+    p1, p2, m, Ks = _planar_edges()
+    fj = jh.fit_homography(jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(m))
+    ft = th.fit_homography(_t(p1), _t(p2), _t(m, torch.bool))
+    np.testing.assert_allclose(_unit_frobenius(_np(ft.H)), _unit_frobenius(_np(fj.H)), atol=1e-4)
+    np.testing.assert_array_equal(_np(ft.num_inliers), _np(fj.num_inliers))
+    np.testing.assert_array_equal(_np(ft.ok), _np(fj.ok))
+
+    H = _np(fj.H)
+    pj = jh.pose_from_homography_batch(jnp.asarray(H), jnp.asarray(Ks), jnp.asarray(Ks),
+                                       jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(m))
+    pt = th.pose_from_homography_batch(_t(H), _t(Ks), _t(Ks), _t(p1), _t(p2), _t(m, torch.bool))
+    np.testing.assert_array_equal(_np(pt.num_pos), _np(pj.num_pos))
+    np.testing.assert_array_equal(_np(pt.ok), _np(pj.ok))
+    for e in range(3):
+        for c in range(2):
+            assert np.radians(_rot_deg(_np(pt.R)[e, c], _np(pj.R)[e, c])) < 1e-3
+            np.testing.assert_allclose(_np(pt.t)[e, c], _np(pj.t)[e, c], atol=1e-3)
+        single = th.pose_from_homography(_t(H[e]), _t(Ks[e]), _t(Ks[e]), _t(p1[e]), _t(p2[e]),
+                                         _t(m[e], torch.bool))
+        np.testing.assert_allclose(_np(single.R), _np(pt.R)[e], atol=1e-6)
+
+    Hc = np.linalg.solve(Ks[0], H[0] @ Ks[0]).astype(np.float32)
+    Rj, tj, _ = jh._faugeras_candidates(jnp.asarray(Hc))
+    Rt, tt, _ = th._faugeras_candidates(_t(Hc))
+    for R_, t_ in zip(_np(Rj), _np(tj)):
+        gaps = [np.abs(R_ - Rb).max() + np.abs(t_ - tb).max() for Rb, tb in zip(_np(Rt), _np(tt))]
+        assert min(gaps) < 1e-4, gaps
+
+    e2 = _np(jh._transfer_err2(jnp.asarray(H), jnp.asarray(p1), jnp.asarray(p2)))
+    np.testing.assert_allclose(_np(th._transfer_err2(_t(H), _t(p1), _t(p2))), e2, rtol=1e-4, atol=1e-4)
+    off = (e2 > 4.0) & m
+    rj, cj = jh.candidate_epipolar_rms_batch(pj.R, pj.t, jnp.asarray(Ks), jnp.asarray(Ks),
+                                             jnp.asarray(p1), jnp.asarray(p2), jnp.asarray(off))
+    rt, ct = th.candidate_epipolar_rms_batch(_t(_np(pj.R)), _t(_np(pj.t)), _t(Ks), _t(Ks), _t(p1),
+                                             _t(p2), _t(off, torch.bool))
+    np.testing.assert_array_equal(_np(ct), _np(cj))
+    np.testing.assert_allclose(_np(rt), _np(rj), atol=1e-3)

@@ -64,13 +64,17 @@ _SLICE_2 = ("ops/smallsvd.py", "types.py", "pipeline/tracks.py", "utils/metrics.
             "pipeline/frontend.py", "ops/matcher.py", "geometry/ransac.py", "geometry/p3p.py",
             "geometry/pnp.py", "ba/problem.py", "ba/schur.py", "ba/lm_core.py", "ba/lm.py",
             "pipeline/incremental.py", "interop.py")
+# The modules of the motion-averaging slice (global engine, chain refresh).
+_SLICE_4 = ("geometry/averaging.py", "geometry/two_view.py", "geometry/triangulation.py",
+            "geometry/homography.py", "native/bindings.py", "pipeline/chain_refresh.py",
+            "pipeline/global_sfm.py")
 
 
-@pytest.mark.parametrize("rel", _SLICE_2)
+@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4)
 def test_engine_slice_modules_import_no_jax(rel):
-    """Each module of the engine slice exists beside its JAX twin (``interop``
-    is the port's own), and importing it alone in a fresh interpreter loads
-    neither ``jax`` nor the JAX package."""
+    """Each module of the engine slices exists beside its JAX twin
+    (``interop`` is the port's own), and importing it alone in a fresh
+    interpreter loads neither ``jax`` nor the JAX package."""
     assert rel == "interop.py" or (ROOT / "sfmfromscratch_tpu" / rel).exists()
     assert (PORT / rel).exists()
     mod = "sfmfromscratch_tpu_torch." + rel[:-3].replace("/", ".")
@@ -133,11 +137,28 @@ def test_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
     assert eng.device == torch.device("cpu")
 
 
+def test_global_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
+    """``GlobalSfmEngine(device=None)`` asks for the card and raises without
+    one, before it reads any image; it runs the window path with Huber BA."""
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GlobalSfmEngine(str(tmp_path), 3)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        GlobalSfmEngine(str(tmp_path), 3, device="cuda", auto_run=False)
+    eng = GlobalSfmEngine(str(tmp_path), 5, device="cpu", auto_run=False)
+    assert eng.device == torch.device("cpu")
+    assert eng.config.ba.huber_delta == 3.0 and eng.pair_window == 3
+    assert eng._candidate_pairs(None) == [(1, 2), (1, 3), (1, 4), (2, 3), (2, 4), (2, 5),
+                                          (3, 4), (3, 5), (4, 5)]
+
+
 @pytest.mark.parametrize("option", [
     dict(assoc_mode="distance"), dict(chain_mode="host"), dict(pair_window=2),
     dict(local_ba_every=3), dict(checkpoint_every=2), dict(checkpoint_path="c.npz"),
     dict(mesh=object()), dict(feature_extractor=lambda im: None), dict(pair_cache_dir="cache"),
-    dict(refine_focal=True), dict(chain_refresh="averaging"), dict(on_pose_failure="recover"),
+    dict(refine_focal=True), dict(on_pose_failure="recover"),
 ])
 def test_engine_options_off_the_default_path_raise(option, tmp_path):
     """Every option of the JAX engine that the port does not run raises
@@ -146,6 +167,38 @@ def test_engine_options_off_the_default_path_raise(option, tmp_path):
 
     with pytest.raises(NotImplementedError):
         SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
+
+
+def test_engine_chain_refresh_values(tmp_path):
+    """``chain_refresh="averaging"`` is ported; any other value is refused
+    as the JAX engine refuses it."""
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, chain_refresh="averaging")
+    assert eng.chain_refresh == "averaging"
+    with pytest.raises(ValueError):
+        SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, chain_refresh="bundle")
+
+
+@pytest.mark.parametrize("option", [
+    dict(pair_mode="retrieval"), dict(pair_mode="both"), dict(keyframe_step=2),
+    dict(keyframe_step="auto"), dict(stream_ba_window=4), dict(mesh=object()),
+    dict(pair_cache_dir="cache"), dict(refine_focal=True),
+    dict(feature_extractor=lambda im: None), dict(adaptive=False),
+])
+def test_global_engine_options_off_the_window_path_raise(option, tmp_path):
+    """Every option of the JAX global engine off its window path raises
+    ``NotImplementedError`` in the port; none is ignored."""
+    import dataclasses
+
+    from sfmfromscratch_tpu_torch.config import PipelineConfig, RansacConfig
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+
+    if "adaptive" in option:
+        option = dict(config=dataclasses.replace(PipelineConfig(),
+                                                 ransac=RansacConfig(adaptive=False)))
+    with pytest.raises(NotImplementedError):
+        GlobalSfmEngine(str(tmp_path), 5, device="cpu", auto_run=False, **option)
 
 
 @pytest.mark.parametrize("ransac", [dict(pnp_solver="dlt"), dict(adaptive=False)])

@@ -1,20 +1,23 @@
-"""Where the time of one ``SfmEngine`` run goes on a CUDA card.
+"""Where the time of one engine run goes on a CUDA card.
 
-Builds the port's kernels, warms the engine on ``bench.py``'s 10-view
-sequence at its configuration (``chip_smoke.bench_sequence`` and
-``chip_smoke.engine_config``), then
+Builds the port's kernels, warms the engine at the bench configuration
+(``chip_smoke.engine_config``) on its scene, then
 
 1. times ``--runs`` warm runs with a host clock (the engine ends in host
    fetches) and keeps each run's ``stage_times`` (each stage ends at a
    device synchronize);
-2. traces one warm run with ``torch.profiler`` (CPU and CUDA activities):
-   the ops with the most device time, the device's busy time (the union of
-   its kernel intervals) and its idle share of the run's wall time.
+2. samples ``nvidia-smi``'s utilization every 100 ms during those runs;
+3. traces one warm run with ``torch.profiler`` (CUDA activity): the kernels
+   with the most device time, the device's busy time (the union of its
+   kernel intervals) and its idle share of the run's wall time.
 
-Prints one JSON line per part and, with ``--out``, writes them all to that
-file.
+The engine is ``SfmEngine`` on ``bench.py``'s 10-view sequence
+(``chip_smoke.bench_sequence``), or with ``--engine global``
+``GlobalSfmEngine`` on the 20-view 4 deg/view orbit of ``chip_smoke.py``'s
+global phase. Prints one JSON line per part as it is measured and, with
+``--out``, appends it to that file (JSON lines).
 
-    python3 tools/profile_engine.py [--runs 3] [--out profile_engine.json]
+    python3 tools/profile_engine.py [--engine global] [--runs 3] [--out profile_engine.json]
 """
 
 from __future__ import annotations
@@ -36,17 +39,20 @@ from tools.profile_two_view import _busy_us  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--engine", choices=("incremental", "global"), default="incremental")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write the parts to this JSON file")
     args = ap.parse_args()
 
     import torch
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     if not torch.cuda.is_available():
         print("profile_engine: no CUDA device available", file=sys.stderr)
         return 2
     from sfmfromscratch_tpu_torch.ops.cuda.build import build_all
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
     dev = torch.device("cuda")
@@ -54,54 +60,85 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     cfg = chip_smoke.engine_config()
-    results = [{"card": smi, "torch": torch.__version__}]
     with tempfile.TemporaryDirectory(prefix="profile_engine_") as seq:
-        K, _ = chip_smoke.bench_sequence(seq)
+        if args.engine == "global":
+            n = chip_smoke.GLOBAL_VIEWS
+            K, _ = chip_smoke.orbit_sequence(seq, n, 4.0)
+            engine = GlobalSfmEngine
+        else:
+            n = 10
+            K, _ = chip_smoke.bench_sequence(seq)
+            engine = SfmEngine
 
         def run():
-            return SfmEngine(seq, 10, config=cfg, single_K=K, device=dev)
+            return engine(seq, n, config=cfg, single_K=K, device=dev)
 
+        def emit(part):
+            # Each part as soon as it is measured: a run cut by its time limit
+            # keeps what it finished.
+            print(json.dumps(part), flush=True)
+            if args.out:
+                with open(args.out, "a") as f:
+                    f.write(json.dumps(part) + "\n")
+
+        if args.out:
+            os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+            open(args.out, "w").close()
+        emit({"card": smi, "torch": torch.__version__, "engine": args.engine})
         run()
+        # nvidia-smi's utilization sampler (share of each 100 ms sample in
+        # which a kernel ran) over the timed runs: a second, coarse reading of
+        # the device's busy share, free of the tracer's overhead.
+        sampler = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=utilization.gpu,clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, text=True)
         walls, stages = [], []
-        for _ in range(args.runs):
-            t0 = time.perf_counter()
-            eng = run()
-            torch.cuda.synchronize()
-            walls.append(time.perf_counter() - t0)
-            stages.append(eng.stage_times)
-        results.append({"part": "engine_warm_s", "runs": walls,
-                        "median": sorted(walls)[len(walls) // 2],
-                        "frames_per_s_median": 10 / sorted(walls)[len(walls) // 2]})
-        results.append({"part": "stage_times_s", "runs": stages})
+        try:
+            for _ in range(args.runs):
+                t0 = time.perf_counter()
+                eng = run()
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+                stages.append(eng.stage_times)
+        finally:
+            sampler.terminate()
+            samples = [[float(x) for x in line.split(",")]
+                       for line in sampler.communicate()[0].splitlines() if line.strip()]
+        emit({"part": "engine_warm_s", "runs": walls, "median": sorted(walls)[len(walls) // 2],
+              "frames_per_s_median": n / sorted(walls)[len(walls) // 2]})
+        emit({"part": "stage_times_s", "runs": stages})
+        emit({"part": "nvidia_smi_samples", "count": len(samples),
+              "utilization_gpu_mean": (sum(r[0] for r in samples) / len(samples)
+                                       if samples else None),
+              "sm_clock_mhz_mean": sum(r[1] for r in samples) / len(samples) if samples else None,
+              "power_draw_w_mean": sum(r[2] for r in samples) / len(samples) if samples else None})
 
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        # One traced run, device activity only. The kernel intervals come
+        # from the raw kineto events (a global run launches about a million
+        # kernels, too many for the profiler's Python event tree); the
+        # tracer's own "Buffer Flush" and "Activity Buffer Request" entries
+        # are not program work and are left out.
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             eng = run()
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
-    kernels = [(e.time_range.start, e.time_range.end) for e in prof.events()
-               if getattr(e.device_type, "name", "") == "CUDA" and e.name != "Buffer Flush"]
-    busy = _busy_us(kernels)
-    top = []
-    for ka in prof.key_averages():
-        if ka.key == "Buffer Flush":   # the tracer's own activity, not the program's
+    kernels, by_name = [], {}
+    for e in prof.profiler.kineto_results.events():
+        name = e.name()
+        if e.device_type() != DeviceType.CUDA or name in ("Buffer Flush", "Activity Buffer Request"):
             continue
-        dev_us = getattr(ka, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ka, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            top.append((dev_us, ka.key, ka.count))
-    top.sort(reverse=True)
-    results.append({"part": "trace", "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
-                    "device_idle_share": (1.0 - busy / wall_us) if wall_us else None,
-                    "kernel_launches": len(kernels), "traced_stage_times_s": eng.stage_times,
-                    "top_self_device_ms": [[k, c, us / 1e3] for us, k, c in top[:20]]})
-    for r in results:
-        print(json.dumps(r), flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            json.dump(results, f, indent=1)
+        start, dur = e.start_ns() / 1e3, e.duration_ns() / 1e3
+        kernels.append((start, start + dur))
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + dur, cnt + 1)
+    busy = _busy_us(kernels)
+    top = sorted(((us, name, cnt) for name, (us, cnt) in by_name.items()), reverse=True)
+    emit({"part": "trace", "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
+          "device_idle_share": (1.0 - busy / wall_us) if wall_us else None,
+          "kernel_launches": len(kernels), "traced_stage_times_s": eng.stage_times,
+          "top_device_kernels_ms": [[k[:120], c, us / 1e3] for us, k, c in top[:15]]})
     return 0
 
 
