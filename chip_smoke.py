@@ -41,9 +41,16 @@ Phases, each printing JSON lines:
              on the 20-view 0.8 deg/view orbit of
              ``tests/test_pipeline.py::test_chain_refresh_de_bends_orbit`` at
              that test's settings and gates; launches counted per run.
+7. host    — the host chain and its options on the bench sequence:
+             ``cli.py reconstruct`` at window 3 with local BA, a pair cache
+             and PLY/COLMAP export, cold then resumed from the cache;
+             distance association; pose recovery over a flat frame with
+             checkpoints, the last loaded back. Launches counted per run;
+             held to pins beside the JAX package's CPU spread
+             (``tools/host_pins.py``).
 
 The line before last is ``{"kernels": [...]}``, with each kernel's launch
-counts on every path (engine, two-view, global, orbit); the last is
+counts on every path (engine, two-view, global, orbit, host); the last is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line. Without a CUDA card, or without the rest of the repository
 beside this file, it exits non-zero at once.
@@ -52,6 +59,7 @@ beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -142,10 +150,11 @@ MATCH_RTOL = 1e-4      # squared distances, relative
 MATCH_ATOL = 1e-6
 MATCH_TIE = 1e-5       # index may differ only where (second - best) <= MATCH_TIE * |best|
 # Matcher shapes: the engine's 9 pairs, the two-view's pair, a 6000-row
-# database, the global engine's 54 window pairs and the orbit's 19 pairs of
-# 600; each in f32 and in the bf16 mode (bf16=True).
+# database, the global engine's 54 window pairs, the orbit's 19 pairs of 600
+# and the host phase's 24 window pairs; each in f32 and in the bf16 mode
+# (bf16=True).
 MATCH_CASES = [(9, 2499, 2499), (1, 2499, 2499), (1, 2499, 6000), (54, 2499, 2499),
-               (19, 600, 600)]
+               (19, 600, 600), (24, 2499, 2499)]
 MATCH_MODES = (False, True)
 # Checked only: a one-row database (second best is the sentinel), ragged
 # tiles on both sides, and widths the wrapper pads to a multiple of 32.
@@ -359,6 +368,59 @@ def orbit_sequence(out_dir: str, num_views: int, step_deg: float):
     return K, poses
 
 
+# The host phase: the bench sequence through the CLI, whose defaults are the
+# bench widths, at window 3 with a local BA every 3 cameras and a pair cache.
+HOST_VIEWS = 10
+HOST_CLI = ["--max-img", str(HOST_VIEWS), "--focal", "520", "--scale-factor", "1.0",
+            "--pair-window", "3", "--local-ba-every", "3"]
+# The pose-recovery run replaces this image with a flat gray frame: no
+# keypoint, so the PnP of pairs (5, 6) and (6, 7) fails.
+HOST_FLAT_IMAGE = 6
+# Host pins from the JAX package on the CPU on the same sequence and
+# configurations (tools/host_pins.py, config.seed 0-4, 9 cameras in every run):
+#   cli (cold, then resumed from its cache): ATE over trajectory extent
+#     0.083-0.244, post-BA mean reprojection error 0.404-1.288 px, tracks
+#     2333-3231, observations per track 1.655-1.736;
+#   distance: ATE/extent 0.060-0.243, 0.418-0.526 px, tracks 4131-4814,
+#     1.641-1.660 observations per track;
+#   recover (flat image 6, both pairs through it recovered): ATE/extent
+#     0.292-0.319, 0.835-4.873 px after BA (16.3-28.4 px before), tracks
+#     2246-2457, 1.479-1.550 observations per track.
+# The margins are the engine pins': 1.6x the worst ATE and error, two thirds
+# of the fewest tracks, and 85% of the fewest observations per track.
+PIN_HOST = {
+    "cli": dict(ate_over_extent=0.39, reproj_px=2.06, min_tracks=1555, min_obs_per_track=1.40),
+    "distance": dict(ate_over_extent=0.39, reproj_px=0.84, min_tracks=2754,
+                     min_obs_per_track=1.39),
+    "recover": dict(ate_over_extent=0.51, reproj_px=7.80, min_tracks=1497,
+                    min_obs_per_track=1.25),
+}
+# 10 views at window 3: 9 + 8 + 7 pairs in one matcher launch.
+HOST_PAIRS = 24
+HOST_LAUNCHES = {"harris_response_fused": 3, "match_top2_fused": 1,
+                 "match_top2_fused(bf16=True)": 0}
+HOST_RESUME_LAUNCHES = dict(HOST_LAUNCHES, match_top2_fused=0)
+
+
+def host_cli_argv(seq: str, cache: str, out: str):
+    """The host phase's ``reconstruct`` command line (both packages' CLIs
+    take it)."""
+    return ["reconstruct", seq, *HOST_CLI, "--pair-cache-dir", cache, "--model-name", "host",
+            "--output-dir", out, "--export-ply", os.path.join(out, "host.ply"),
+            "--export-colmap", os.path.join(out, "colmap")]
+
+
+def flat_frame(seq: str, idx: int) -> None:
+    """Overwrite ``idx.jpg`` in ``seq`` with a flat gray frame of its size."""
+    import numpy as np
+    from PIL import Image
+
+    path = os.path.join(seq, f"{idx}.jpg")
+    with Image.open(path) as im:
+        arr = np.full_like(np.asarray(im), 128)
+    Image.fromarray(arr).save(path, quality=95)
+
+
 def trajectory_error(global_poses, gt_poses, first_image: int = 2):
     """(ATE, trajectory extent) of an engine's ``global_poses`` against the
     ground truth, as ``bench.py::log_ate`` computes them: camera centres,
@@ -456,6 +518,7 @@ def harris_phase(dev, peaks):
                       plain_ms=2 * _sum(two_view, "plain_ms")),
         global_path=_path(global_, "global run: 3 launches, B=20 at 360x480, 327x436, 297x396"),
         orbit_path=_path(orbit, "orbit run: 2 launches, B=20 at 360x480, 300x400"),
+        host_path=_path(engine, "host CLI run: 3 launches, B=10 at 360x480, 327x436, 297x396"),
     )
 
 
@@ -575,7 +638,7 @@ def match_phase(dev, peaks):
         _print({"phase": "match", "mode": "bf16" if bf16 else "f32", "rtol": MATCH_RTOL,
                 "atol": MATCH_ATOL, "tie_rel": MATCH_TIE, "cases": rows, "tie_case": tie,
                 "edge_cases": edges})
-        main, two_view, global_, orbit = rows[0], rows[1], rows[3], rows[4]
+        main, two_view, global_, orbit, host = rows[0], rows[1], rows[3], rows[4], rows[5]
         path_keys = ("device_ms", "call_ms", "bound_ms", "plain_ms", "library_ms")
         kernels.append(dict(
             name="match_top2_fused(bf16=True)" if bf16 else "match_top2_fused", route="cuda",
@@ -593,6 +656,8 @@ def match_phase(dev, peaks):
                               path_keys),
             orbit_path=_path([orbit], "orbit run: one launch, B=19 pairs, 600 x 600 x 128",
                              path_keys),
+            host_path=_path([host], "host CLI cold run: one launch, B=24 window pairs, "
+                            "2499 x 2499 x 128 (none when the pair cache resumes)", path_keys),
         ))
     return kernels
 
@@ -980,6 +1045,203 @@ def orbit_phase(dev):
     return runs["refresh"]["launches"]
 
 
+def _host_row(eng, gt, wall_s, launches):
+    """One host-phase run's numbers."""
+    import numpy as np
+
+    ate, extent = trajectory_error(eng.global_poses, gt)
+    e0, e1 = eng.errors_before_after_ba
+    return dict(wall_s=wall_s, launches=launches, cameras=len(eng.global_poses),
+                ate_over_extent=ate / extent, reproj_before_px=e0, reproj_after_px=e1,
+                tracks=eng.map.num_tracks, observations=eng.map.num_observations,
+                obs_per_track=eng.map.num_observations / max(eng.map.num_tracks, 1),
+                stage_times_s=eng.stage_times, warnings=eng.warnings,
+                finite=bool(np.isfinite(eng.map.points()).all()
+                            and all(np.isfinite(np.hstack(p)).all() for p in eng.global_poses)
+                            and np.isfinite([e0, e1]).all()))
+
+
+def _check_host_row(label, row, pins, launches):
+    _check(row["launches"] == launches, f"host {label} launches {row['launches']} != {launches}")
+    _check(row["cameras"] == HOST_VIEWS - 1, f"host {label}: {row['cameras']} cameras")
+    _check(row["finite"], f"host {label}: non-finite poses, points or errors")
+    _check(row["ate_over_extent"] <= pins["ate_over_extent"],
+           f"host {label}: ATE over extent {row['ate_over_extent']} > {pins['ate_over_extent']}")
+    _check(row["reproj_after_px"] <= pins["reproj_px"],
+           f"host {label}: post-BA error {row['reproj_after_px']} px > {pins['reproj_px']}")
+    _check(row["tracks"] >= pins["min_tracks"],
+           f"host {label}: {row['tracks']} tracks < {pins['min_tracks']}")
+    _check(row["obs_per_track"] >= pins["min_obs_per_track"],
+           f"host {label}: {row['obs_per_track']} observations per track")
+
+
+def _read_exports(out: str, cams: int, tracks: int) -> dict:
+    """Parse the CLI's PLY and COLMAP text; returns their counts."""
+    with open(os.path.join(out, "host.ply")) as f:
+        lines = f.read().splitlines()
+    end = lines.index("end_header")
+    n_vertex = int(next(ln for ln in lines[:end] if ln.startswith("element vertex")).split()[2])
+    body = lines[end + 1:]
+    _check(n_vertex == len(body) == tracks + cams, f"PLY holds {len(body)} of {n_vertex} vertices")
+    _check(all(len(ln.split()) == 6 for ln in body), "PLY vertex lines")
+    _check(all(math.isfinite(float(v)) for ln in body for v in ln.split()[:3]),
+           "PLY coordinates")
+    colmap = {}
+    for name in ("cameras.txt", "images.txt", "points3D.txt"):
+        with open(os.path.join(out, "colmap", name)) as f:
+            colmap[name] = [ln for ln in f.read().splitlines() if not ln.startswith("#")]
+    _check(len(colmap["cameras.txt"]) == cams, "COLMAP cameras")
+    _check(len(colmap["images.txt"]) == 2 * cams, "COLMAP images")
+    _check(len(colmap["points3D.txt"]) == tracks, "COLMAP points")
+    for ln in colmap["images.txt"][::2]:
+        q = [float(v) for v in ln.split()[1:5]]
+        _check(abs(sum(v * v for v in q) - 1.0) < 1e-6, "COLMAP quaternion not unit")
+    return {"ply_vertices": n_vertex, "colmap_cameras": len(colmap["cameras.txt"]),
+            "colmap_points": len(colmap["points3D.txt"])}
+
+
+def host_phase(dev):
+    """The host chain and its options on the bench sequence at the bench
+    widths, the first two runs through the port's CLI:
+
+    1. ``cli.py reconstruct`` at window 3 with a local BA every 3 cameras,
+       a fresh pair cache, and PLY and COLMAP export;
+    2. the same command again: every pair resumes from the cache, so the
+       matcher does not launch, and the pair masks are run 1's;
+    3. ``SfmEngine(chain_mode="host")``: the engine phase's run with the
+       host chain in place of the scan chain (the engine's pins);
+    4. ``SfmEngine(chain_mode="host", assoc_mode="distance")``;
+    5. ``SfmEngine(on_pose_failure="recover", pair_window=3,
+       checkpoint_every=3)`` with image 6 replaced by a flat gray frame, whose
+       pairs (5, 6) and (6, 7) take the pose recovery; the last checkpoint
+       loads into a fresh engine with the state it was written from.
+
+    Launches are counted per run. Returns run 1's counts."""
+    import contextlib
+    import io
+    import re
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch import cli
+    from sfmfromscratch_tpu_torch.pipeline import checkpoint, incremental
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    cfg = engine_config()
+    n = HOST_VIEWS
+    engines = []
+    run = SfmEngine.run
+
+    def keep(self):   # the engine the CLI builds
+        engines.append(self)
+        return run(self)
+
+    def timed(fn):
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _launch_counts()
+
+    runs, extra = {}, {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_host_") as tmp:
+        seq = os.path.join(tmp, "seq")
+        os.makedirs(seq)
+        K, gt = bench_sequence(seq, n)
+        cache, out = os.path.join(tmp, "cache"), os.path.join(tmp, "out")
+        # The CLI runs on the card unless told otherwise.
+        argv = host_cli_argv(seq, cache, out) + ([] if dev.type == "cuda" else ["--device", str(dev)])
+        for label in ("cli_cold", "cli_resume"):
+            text = io.StringIO()
+            SfmEngine.run = keep
+            try:
+                with contextlib.redirect_stdout(text):
+                    rc, wall, launches = timed(lambda: cli.main(argv))
+            finally:
+                SfmEngine.run = run
+            lines = text.getvalue().strip().splitlines()
+            _check(rc == 0, f"CLI {label} exited {rc}")
+            runs[label] = _host_row(engines[-1], gt, wall, launches)
+            runs[label]["printed"] = lines
+            _check(len(lines) == 2 and re.fullmatch(r"tracks=\d+ observations=\d+", lines[0])
+                   and re.fullmatch(r"mean reprojection error: \d+\.\d{4} -> \d+\.\d{4} px",
+                                    lines[1]), f"CLI {label} printed {lines}")
+            saved = np.load(os.path.join(out, "host.npz"))
+            _check(saved["poses"].shape == (n - 1, 6) and saved["p3d"].shape == (
+                runs[label]["tracks"], 3), f"CLI {label}: saved model shapes")
+            _check(bool(np.isfinite(saved["poses"]).all() and np.isfinite(saved["p3d"]).all()),
+                   f"CLI {label}: non-finite saved model")
+            runs[label]["exports"] = _read_exports(out, n - 1, runs[label]["tracks"])
+            if label == "cli_cold":
+                extra["cache_files"] = len([f for f in os.listdir(cache) if f.endswith(".npz")])
+        cold, warm = engines
+        extra["resumed_masks_equal"] = all(
+            np.array_equal(warm.pair_geometry[k].mask, pg.mask) for k, pg in cold.pair_geometry.items())
+
+        eng, wall, launches = timed(lambda: SfmEngine(
+            seq, n, config=cfg, single_K=K, device=dev, chain_mode="host"))
+        runs["host_index"] = _host_row(eng, gt, wall, launches)
+        eng, wall, launches = timed(lambda: SfmEngine(
+            seq, n, config=cfg, single_K=K, device=dev, chain_mode="host", assoc_mode="distance"))
+        runs["distance"] = _host_row(eng, gt, wall, launches)
+
+        flat_frame(seq, HOST_FLAT_IMAGE)
+        ckpt = os.path.join(tmp, "checkpoint.npz")
+        held = {}
+        save = incremental.save_checkpoint
+
+        def remember(engine, path, next_frame):   # the state each checkpoint holds
+            save(engine, path, next_frame)
+            held.update(next_frame=next_frame, points=engine.map.points().copy(),
+                        observations=engine.map.observations(),
+                        poses=np.array([np.hstack(p) for p in engine.global_poses]),
+                        rng_state=engine._generator.get_state().clone())
+
+        incremental.save_checkpoint = remember
+        try:
+            eng, wall, launches = timed(lambda: SfmEngine(
+                seq, n, config=cfg, single_K=K, device=dev, on_pose_failure="recover",
+                pair_window=3, checkpoint_every=3, checkpoint_path=ckpt))
+        finally:
+            incremental.save_checkpoint = save
+        runs["recover"] = _host_row(eng, gt, wall, launches)
+        fresh = SfmEngine(seq, n, config=cfg, single_K=K, device=dev, auto_run=False)
+        resume_at = checkpoint.load_checkpoint(fresh, ckpt)
+        extra["checkpoint"] = dict(next_frame=resume_at, tracks=fresh.map.num_tracks,
+                                   cameras=len(fresh.global_poses))
+        _check(resume_at == held["next_frame"] == n, f"checkpoint resumes at {resume_at}")
+        _check(np.array_equal(fresh.map.points(), held["points"]), "checkpoint points")
+        _check(all(np.array_equal(a, b) for a, b in zip(fresh.map.observations(),
+                                                        held["observations"])),
+               "checkpoint observations")
+        _check(np.array_equal(np.array([np.hstack(p) for p in fresh.global_poses]), held["poses"]),
+               "checkpoint poses")
+        _check(torch.equal(fresh._generator.get_state(), held["rng_state"]),
+               "checkpoint generator state")
+
+    _print({"phase": "host", "views": n, "cli_argv": argv, "runs": runs, **extra,
+            "pins": PIN_HOST, "launches": {"cli_cold": HOST_LAUNCHES,
+                                           "cli_resume": HOST_RESUME_LAUNCHES}})
+    _check_host_row("CLI cold", runs["cli_cold"], PIN_HOST["cli"], HOST_LAUNCHES)
+    _check(extra["cache_files"] == HOST_PAIRS, f"{extra['cache_files']} pair cache files")
+    _check(not runs["cli_cold"]["warnings"], f"CLI cold warnings {runs['cli_cold']['warnings']}")
+    _check("local_ba" in runs["cli_cold"]["stage_times_s"], "CLI cold run ran no local BA")
+    _check_host_row("CLI resume", runs["cli_resume"], PIN_HOST["cli"], HOST_RESUME_LAUNCHES)
+    _check(runs["cli_resume"]["warnings"] == [f"pair cache: resumed {HOST_PAIRS}/{HOST_PAIRS} pairs"],
+           f"CLI resume warnings {runs['cli_resume']['warnings']}")
+    _check(extra["resumed_masks_equal"], "resumed pair masks differ from the cold run's")
+    _check_host_row("host_index", runs["host_index"],
+                    dict(ate_over_extent=PIN_ENGINE_ATE, reproj_px=PIN_ENGINE_REPROJ_PX,
+                         min_tracks=PIN_ENGINE_MIN_TRACKS, min_obs_per_track=1.0), HOST_LAUNCHES)
+    _check_host_row("distance", runs["distance"], PIN_HOST["distance"], HOST_LAUNCHES)
+    _check_host_row("recover", runs["recover"], PIN_HOST["recover"], HOST_LAUNCHES)
+    _check(any(w.startswith("pose recovery engaged") for w in runs["recover"]["warnings"]),
+           "pose recovery did not engage")
+    return runs["cli_cold"]["launches"]
+
+
 def main(argv) -> int:
     only_kernels = "--only-kernels" in argv
     try:
@@ -1021,11 +1283,13 @@ def main(argv) -> int:
         launches = engine_phase(dev)
         global_ = global_phase(dev)
         orbit = orbit_phase(dev)
+        host = host_phase(dev)
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
             k["launches_two_view"] = two_view.get(k["name"], 0)
             k["launches_global"] = global_.get(k["name"], 0)
             k["launches_orbit"] = orbit.get(k["name"], 0)
+            k["launches_host"] = host.get(k["name"], 0)
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -26,9 +26,13 @@ def nullvec_lstsq(A: torch.Tensor) -> torch.Tensor:
         return v / torch.linalg.norm(v, dim=-1, keepdim=True)
     if m > n:
         A = torch.linalg.qr(A, mode="r").R                 # (..., n, n)
-    _, _, Vh = torch.linalg.svd(A, full_matrices=False)
+    # A system with a non-finite entry gives NaN, as XLA's SVD does, where
+    # torch.linalg.svd would raise (a failed PnP pose triangulates so).
+    bad = ~torch.isfinite(A).all(dim=-1).all(dim=-1)
+    _, _, Vh = torch.linalg.svd(torch.where(bad[..., None, None], 0.0, A), full_matrices=False)
     v = Vh[..., -1, :]
-    return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+    v = v / torch.linalg.norm(v, dim=-1, keepdim=True)
+    return torch.where(bad[..., None], float("nan"), v)
 
 
 def project_rank2(F: torch.Tensor) -> torch.Tensor:

@@ -77,13 +77,15 @@ class GlobalSfmEngine(SfmEngine):
     """Global SfM over an image sequence, with :class:`SfmEngine`'s result
     contract (map, global_poses, global_K, errors, save_data).
 
-    ``device=None`` runs on the CUDA card and raises without one. Options
+    ``device=None`` runs on the CUDA card and raises without one. The pair
+    cache and the match-graph shards work as in :class:`SfmEngine`. Options
     the port does not run raise ``NotImplementedError``: other pair modes,
-    keyframing, streaming BA, a mesh, the pair cache, focal
-    self-calibration, another extractor and fixed-count RANSAC.
+    keyframing, streaming BA, a mesh, focal self-calibration, another
+    extractor and fixed-count RANSAC.
     """
 
-    _window_pairs_ported = True
+    # Every window pair feeds the view graph, pair (1, 2) included.
+    _filter_all_pairs = True
 
     def __init__(
         self,
@@ -142,9 +144,6 @@ class GlobalSfmEngine(SfmEngine):
     def _check_config(self) -> None:
         if not self.config.ransac.adaptive:
             raise NotImplementedError("only the adaptive RANSAC stages are ported")
-
-    def _dev(self, a, dtype=torch.float32) -> torch.Tensor:
-        return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
     # ------------------------------------------------------------------ stages
 

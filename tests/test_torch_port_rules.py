@@ -68,9 +68,13 @@ _SLICE_2 = ("ops/smallsvd.py", "types.py", "pipeline/tracks.py", "utils/metrics.
 _SLICE_4 = ("geometry/averaging.py", "geometry/two_view.py", "geometry/triangulation.py",
             "geometry/homography.py", "native/bindings.py", "pipeline/chain_refresh.py",
             "pipeline/global_sfm.py")
+# The modules of the host-chain slice (checkpoints, export, image I/O,
+# profiling, the CLI).
+_SLICE_5 = ("pipeline/checkpoint.py", "io/export.py", "io/images.py", "utils/profiling.py",
+            "cli.py")
 
 
-@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4)
+@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5)
 def test_engine_slice_modules_import_no_jax(rel):
     """Each module of the engine slices exists beside its JAX twin
     (``interop`` is the port's own), and importing it alone in a fresh
@@ -137,6 +141,17 @@ def test_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
     assert eng.device == torch.device("cpu")
 
 
+@pytest.mark.parametrize("pipeline", ["incremental", "global"])
+def test_cli_needs_cuda_unless_cpu(monkeypatch, tmp_path, pipeline):
+    """``cli.py reconstruct`` runs on the card unless ``--device cpu`` is
+    given, and raises without one before it reads any image."""
+    from sfmfromscratch_tpu_torch import cli
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(["reconstruct", str(tmp_path), "--max-img", "3", "--pipeline", pipeline])
+
+
 def test_global_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
     """``GlobalSfmEngine(device=None)`` asks for the card and raises without
     one, before it reads any image; it runs the window path with Huber BA."""
@@ -155,10 +170,7 @@ def test_global_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("option", [
-    dict(assoc_mode="distance"), dict(chain_mode="host"), dict(pair_window=2),
-    dict(local_ba_every=3), dict(checkpoint_every=2), dict(checkpoint_path="c.npz"),
-    dict(mesh=object()), dict(feature_extractor=lambda im: None), dict(pair_cache_dir="cache"),
-    dict(refine_focal=True), dict(on_pose_failure="recover"),
+    dict(mesh=object()), dict(feature_extractor=lambda im: None), dict(refine_focal=True),
 ])
 def test_engine_options_off_the_default_path_raise(option, tmp_path):
     """Every option of the JAX engine that the port does not run raises
@@ -167,6 +179,26 @@ def test_engine_options_off_the_default_path_raise(option, tmp_path):
 
     with pytest.raises(NotImplementedError):
         SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
+
+
+@pytest.mark.parametrize("option, scan, fused", [
+    (dict(assoc_mode="distance"), False, False), (dict(chain_mode="host"), False, False),
+    (dict(pair_window=2), False, False), (dict(local_ba_every=3), False, False),
+    (dict(checkpoint_every=2), False, False), (dict(checkpoint_path="c.npz"), True, True),
+    (dict(pair_cache_dir="cache"), True, False), (dict(on_pose_failure="recover"), False, False),
+])
+def test_engine_host_options_take_the_jax_path(option, scan, fused, tmp_path):
+    """The options of the host chain are accepted and pick the JAX engine's
+    path (``incremental.py:859-867, 1471-1485``): the host chain unless the
+    option leaves the scan chain's conditions alone, and the fused front
+    only with neither a pair cache nor window pairs."""
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    eng = SfmEngine(str(tmp_path), 4, device="cpu", auto_run=False, **option)
+    for name, value in option.items():
+        assert getattr(eng, name) == value
+    assert eng._use_scan_chain() is scan
+    assert eng._fused_front_eligible(None) is fused
 
 
 def test_engine_chain_refresh_values(tmp_path):
@@ -183,7 +215,7 @@ def test_engine_chain_refresh_values(tmp_path):
 @pytest.mark.parametrize("option", [
     dict(pair_mode="retrieval"), dict(pair_mode="both"), dict(keyframe_step=2),
     dict(keyframe_step="auto"), dict(stream_ba_window=4), dict(mesh=object()),
-    dict(pair_cache_dir="cache"), dict(refine_focal=True),
+    dict(refine_focal=True),
     dict(feature_extractor=lambda im: None), dict(adaptive=False),
 ])
 def test_global_engine_options_off_the_window_path_raise(option, tmp_path):
@@ -199,6 +231,19 @@ def test_global_engine_options_off_the_window_path_raise(option, tmp_path):
                                                  ransac=RansacConfig(adaptive=False)))
     with pytest.raises(NotImplementedError):
         GlobalSfmEngine(str(tmp_path), 5, device="cpu", auto_run=False, **option)
+
+
+def test_global_engine_takes_the_pair_cache(tmp_path):
+    """``GlobalSfmEngine`` accepts ``pair_cache_dir`` and shares the
+    incremental engine's ``_match_pairs`` with every window pair filtered,
+    pair (1, 2) included, as the JAX class sets ``_filter_all_pairs``."""
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    eng = GlobalSfmEngine(str(tmp_path), 5, device="cpu", auto_run=False, pair_cache_dir="cache")
+    assert eng.pair_cache_dir == "cache" and eng._filter_all_pairs
+    assert GlobalSfmEngine._match_pairs is SfmEngine._match_pairs
+    assert not getattr(SfmEngine, "_filter_all_pairs", False)
 
 
 @pytest.mark.parametrize("ransac", [dict(pnp_solver="dlt"), dict(adaptive=False)])

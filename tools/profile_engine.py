@@ -12,12 +12,14 @@ Builds the port's kernels, warms the engine at the bench configuration
    kernel intervals) and its idle share of the run's wall time.
 
 The engine is ``SfmEngine`` on ``bench.py``'s 10-view sequence
-(``chip_smoke.bench_sequence``), or with ``--engine global``
-``GlobalSfmEngine`` on the 20-view 4 deg/view orbit of ``chip_smoke.py``'s
-global phase. Prints one JSON line per part as it is measured and, with
-``--out``, appends it to that file (JSON lines).
+(``chip_smoke.bench_sequence``); with ``--engine host`` the same run with the
+host chain (``chain_mode="host"``: one synchronising fetch per frame) in
+place of the scan chain; with ``--engine global`` ``GlobalSfmEngine`` on the
+20-view 4 deg/view orbit of ``chip_smoke.py``'s global phase. Prints one JSON
+line per part as it is measured and, with ``--out``, appends it to that file
+(JSON lines).
 
-    python3 tools/profile_engine.py [--engine global] [--runs 3] [--out profile_engine.json]
+    python3 tools/profile_engine.py [--engine host|global] [--runs 3] [--out profile_engine.json]
 """
 
 from __future__ import annotations
@@ -39,7 +41,7 @@ from tools.profile_two_view import _busy_us  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--engine", choices=("incremental", "global"), default="incremental")
+    ap.add_argument("--engine", choices=("incremental", "host", "global"), default="incremental")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write the parts to this JSON file")
     args = ap.parse_args()
@@ -69,9 +71,10 @@ def main() -> int:
             n = 10
             K, _ = chip_smoke.bench_sequence(seq)
             engine = SfmEngine
+        kw = {"chain_mode": "host"} if args.engine == "host" else {}
 
         def run():
-            return engine(seq, n, config=cfg, single_K=K, device=dev)
+            return engine(seq, n, config=cfg, single_K=K, device=dev, **kw)
 
         def emit(part):
             # Each part as soon as it is measured: a run cut by its time limit
