@@ -48,9 +48,19 @@ Phases, each printing JSON lines:
              checkpoints, the last loaded back. Launches counted per run;
              held to pins beside the JAX package's CPU spread
              (``tools/host_pins.py``).
+8. scale   — the global engine's scale-out path and focal self-calibration:
+             the CLI on a 47-view 1.5 deg/view orbit with auto keyframes
+             (the other frames registered by batched PnP), then again with
+             the final BA streamed through the block store, resumed from the
+             first run's pair cache; retrieval pairs on a shuffled 12-view
+             planes scene; ``bundle_adjust_selfcal`` on a focal-observable
+             problem (card against CPU) and the CLI with ``--refine-focal``.
+             Launches counted per run; held to the JAX tests' gates and to
+             pins beside the JAX package's CPU spread
+             (``tools/scale_pins.py``).
 
 The line before last is ``{"kernels": [...]}``, with each kernel's launch
-counts on every path (engine, two-view, global, orbit, host); the last is
+counts on every path (engine, two-view, global, orbit, host, scale); the last is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line. Without a CUDA card, or without the rest of the repository
 beside this file, it exits non-zero at once.
@@ -150,11 +160,12 @@ MATCH_RTOL = 1e-4      # squared distances, relative
 MATCH_ATOL = 1e-6
 MATCH_TIE = 1e-5       # index may differ only where (second - best) <= MATCH_TIE * |best|
 # Matcher shapes: the engine's 9 pairs, the two-view's pair, a 6000-row
-# database, the global engine's 54 window pairs, the orbit's 19 pairs of 600
-# and the host phase's 24 window pairs; each in f32 and in the bf16 mode
+# database, the global engine's 54 window pairs, the orbit's 19 pairs of 600,
+# the host phase's 24 window pairs and the scale phase's 46 consecutive pairs
+# of the keyframe flow selection; each in f32 and in the bf16 mode
 # (bf16=True).
 MATCH_CASES = [(9, 2499, 2499), (1, 2499, 2499), (1, 2499, 6000), (54, 2499, 2499),
-               (19, 600, 600), (24, 2499, 2499)]
+               (19, 600, 600), (24, 2499, 2499), (46, 2499, 2499)]
 MATCH_MODES = (False, True)
 # Checked only: a one-row database (second best is the sentinel), ragged
 # tiles on both sides, and widths the wrapper pads to a multiple of 32.
@@ -402,6 +413,133 @@ HOST_LAUNCHES = {"harris_response_fused": 3, "match_top2_fused": 1,
 HOST_RESUME_LAUNCHES = dict(HOST_LAUNCHES, match_top2_fused=0)
 
 
+# The scale phase: the global engine's scale-out path at the bench widths.
+# The dense orbit is the documented global drive's 47 views at 1.5 deg/view
+# (TempleRing scale), reconstructed from flow-selected keyframes; the other
+# frames register by batched PnP. The default flow target (5% of the
+# diagonal, 30 px) picks 4 keyframes of 47, ~15 frames (22 deg) apart,
+# beyond what the sprite renderer's patches match: JAX then fails the gates
+# (19 failed registrations, ATE/extent 0.30 at seed 0; JAX, CPU;
+# tools/scale_pins.py --flow-px 0). A 7.5 px target picks 13, a keyframe
+# every ~4 frames (6 deg).
+SCALE_VIEWS = 47
+SCALE_STEP_DEG = 1.5
+SCALE_FLOW_PX = 7.5
+SCALE_CLI = ["--max-img", str(SCALE_VIEWS), "--pipeline", "global", "--keyframe-step", "auto",
+             "--keyframe-flow-px", str(SCALE_FLOW_PX), "--focal", "520", "--scale-factor", "1.0"]
+# The same command with the final BA streamed: 47 cameras in blocks of 16
+# give 3 blocks, solved 2 at a time.
+SCALE_STREAM = ["--stream-ba-window", "2", "--stream-ba-block-cams", "16"]
+# The unordered set of tests/test_global_sfm.py::test_global_retrieval_unordered
+# (12 planes views 10 deg apart, shuffled) at 360x480, matched by retrieval.
+PLANES_VIEWS = 12
+RETRIEVAL_ENGINE = dict(pair_mode="retrieval", retrieval_k=4, rel_num_hypotheses=512)
+# The keyframes run launches Harris once per level for the 47 images and the
+# matcher three times: the flow selection's consecutive pairs, the keyframe
+# window pairs and the registration pairs (the stream run resumes the
+# keyframe pairs from the cache: two). Retrieval and the selfcal CLI launch
+# as the engine does: Harris once per pyramid level, the matcher once.
+SCALE_LAUNCHES = {"harris_response_fused": 3, "match_top2_fused": 3}
+SELFCAL_LAUNCHES = {"harris_response_fused": 2, "match_top2_fused": 1}   # 2 pyramid levels
+# Scale pins from the JAX package on the CPU on the same scenes and
+# configurations (tools/scale_pins.py, config.seed 0-4; every JAX run passed
+# every gate of this phase):
+#   keyframes: 47 cameras, 13 keyframes, no failed registration, ATE over
+#     extent 0.00068-0.00087, 0.3313-0.3347 px after BA, tracks 1800-1822;
+#   stream: ATE/extent 0.00109-0.00153, 0.3356-0.3575 px, tracks 1784-1835,
+#     4 windows, peak resident observations 7968-8096 of 11651-11822;
+#   retrieval: 12 cameras, 28-29 edges, ATE/extent 0.00048-0.00055,
+#     0.2068-0.2099 px, tracks 4021-4058.
+# The margins are the engine pins': 1.6x the worst ATE and error, two thirds
+# of the fewest tracks.
+PIN_SCALE = {
+    "keyframes": dict(ate_over_extent=0.0014, reproj_px=0.54, min_tracks=1200),
+    "stream": dict(ate_over_extent=0.0025, reproj_px=0.58, min_tracks=1189),
+    "retrieval": dict(ate_over_extent=0.0009, reproj_px=0.34, min_tracks=2681),
+}
+# The incremental CLI with focal self-calibration at the true focal, on the
+# scene of tests/test_parallel.py::test_engine_selfcal_on_mesh (4 views, 110
+# points, 240x320, f=400) at that test's extractor and RANSAC settings. On
+# the bench sequence a shared focal is weakly observable: JAX lands at
+# scales 1.009-1.183 over config.seed 0-4, two of them outside the gate
+# |s - 1| < 0.05 (JAX, CPU; tools/scale_pins.py --runs selfcal_bench).
+SELFCAL_VIEWS = 4
+SELFCAL_CLI = ["--max-img", str(SELFCAL_VIEWS), "--focal", "400", "--scale-factor", "1.0",
+               "--num-interest-points", "400", "--sigma", "3", "--feature-width", "16",
+               "--pyramid-level", "2", "--pyramid-scale-factor", "1.2",
+               "--ransac-iterations", "384", "--refine-focal"]
+
+
+def scale_cli_argv(seq: str, cache: str, *extra):
+    """The scale phase's global ``reconstruct`` command line (both packages'
+    CLIs take it)."""
+    return ["reconstruct", seq, *SCALE_CLI, "--pair-cache-dir", cache, *extra]
+
+
+def shuffled_planes(out_dir: str):
+    """Write ``render_planes(default_rng(3), 12 views, 10 deg/view)`` at
+    360x480, shuffled by the permutation the same generator draws next, as
+    ``1.jpg..12.jpg`` into ``out_dir``; returns (K, ground-truth poses in file
+    order)."""
+    import numpy as np
+
+    mod = _render_module()
+    rng = np.random.default_rng(3)
+    images, K, poses, _ = mod.render_planes(rng, num_views=PLANES_VIEWS, img_hw=(360, 480),
+                                            orbit_step_deg=10.0)
+    perm = rng.permutation(len(images))
+    mod.write_sequence(out_dir, [images[p] for p in perm])
+    return K, [poses[p] for p in perm]
+
+
+def selfcal_sequence(out_dir: str):
+    """Write ``render_sequence(default_rng(5), 4 views, 110 points)`` (240x320,
+    f=400) as ``1.jpg..4.jpg`` into ``out_dir``; returns (K, poses)."""
+    import numpy as np
+
+    mod = _render_module()
+    images, K, poses, _ = mod.render_sequence(np.random.default_rng(5), num_views=SELFCAL_VIEWS,
+                                              num_points=110)
+    mod.write_sequence(out_dir, images)
+    return K, poses
+
+
+def focal_observable_arrays(rng, focal_error: float = 1.06):
+    """``tests/test_ba.py::_focal_observable_problem`` as the arguments of
+    ``make_problem``: 8 cameras with rotation and forward/lateral motion, 300
+    points, 0.3 px noise, K wrong by ``focal_error``, camera 0 frozen."""
+    import numpy as np
+    from scipy.spatial.transform import Rotation
+
+    C, Pn = 8, 300
+    K_true = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+    X = np.stack([rng.uniform(-3, 3, Pn), rng.uniform(-2, 2, Pn),
+                  rng.uniform(3, 12, Pn)], 1)
+    cams = []
+    for c in range(C):
+        rv = np.array([0.05, -0.12, 0.03]) * c
+        t = np.array([-0.5 * c, 0.05 * c, 0.3 * c])
+        cams.append((Rotation.from_rotvec(rv).as_matrix(), t, rv))
+    obs_cam, obs_pt, obs_xy = [], [], []
+    for ci, (R, t, _) in enumerate(cams):
+        pc = X @ R.T + t
+        pix = pc @ K_true.T
+        uv = pix[:, :2] / pix[:, 2:3]
+        for pi in range(Pn):
+            if pc[pi, 2] > 0.5 and 0 < uv[pi, 0] < 640 and 0 < uv[pi, 1] < 480:
+                obs_cam.append(ci)
+                obs_pt.append(pi)
+                obs_xy.append(uv[pi] + rng.normal(0, 0.3, 2))
+    cam_params = np.array([np.hstack([rv, t]) for (_, t, rv) in cams])
+    cam_fixed = np.zeros(C, bool)
+    cam_fixed[0] = True
+    K_wrong = K_true.copy()
+    K_wrong[0, 0] *= focal_error
+    K_wrong[1, 1] *= focal_error
+    return (cam_params, X, np.array(obs_cam), np.array(obs_pt), np.array(obs_xy),
+            np.stack([K_wrong] * C)), dict(cam_fixed=cam_fixed)
+
+
 def host_cli_argv(seq: str, cache: str, out: str):
     """The host phase's ``reconstruct`` command line (both packages' CLIs
     take it)."""
@@ -478,7 +616,7 @@ def harris_phase(dev, peaks):
     # The last case's width is not a multiple of 4: the kernel's scalar path.
     cases = [(10, H, W) for H, W in ENGINE_LEVELS] + [(1, H, W) for H, W in ENGINE_LEVELS] \
         + [(20, H, W) for H, W in ENGINE_LEVELS] + [(20, *ORBIT_LEVELS[1])] \
-        + [(1, 960, 1280), (2, 45, 61)]
+        + [(1, 960, 1280), (2, 45, 61)] + [(SCALE_VIEWS, H, W) for H, W in ENGINE_LEVELS]
     rows = []
     for B, H, W in cases:
         img = torch.rand((B, H, W), generator=gen, device=dev)
@@ -500,6 +638,7 @@ def harris_phase(dev, peaks):
 
     engine, two_view, global_ = rows[:3], rows[3:6], rows[6:9]
     orbit = [rows[6], rows[9]]
+    scale = rows[12:15]
     return dict(
         name="harris_response_fused", route="cuda",
         source="sfmfromscratch_tpu_torch/csrc/harris.cu",
@@ -519,6 +658,8 @@ def harris_phase(dev, peaks):
         global_path=_path(global_, "global run: 3 launches, B=20 at 360x480, 327x436, 297x396"),
         orbit_path=_path(orbit, "orbit run: 2 launches, B=20 at 360x480, 300x400"),
         host_path=_path(engine, "host CLI run: 3 launches, B=10 at 360x480, 327x436, 297x396"),
+        scale_path=_path(scale, f"scale keyframes run: 3 launches, B={SCALE_VIEWS} at 360x480, "
+                                "327x436, 297x396"),
     )
 
 
@@ -638,7 +779,8 @@ def match_phase(dev, peaks):
         _print({"phase": "match", "mode": "bf16" if bf16 else "f32", "rtol": MATCH_RTOL,
                 "atol": MATCH_ATOL, "tie_rel": MATCH_TIE, "cases": rows, "tie_case": tie,
                 "edge_cases": edges})
-        main, two_view, global_, orbit, host = rows[0], rows[1], rows[3], rows[4], rows[5]
+        main, two_view, global_, orbit, host, scale = (rows[0], rows[1], rows[3], rows[4],
+                                                       rows[5], rows[6])
         path_keys = ("device_ms", "call_ms", "bound_ms", "plain_ms", "library_ms")
         kernels.append(dict(
             name="match_top2_fused(bf16=True)" if bf16 else "match_top2_fused", route="cuda",
@@ -658,6 +800,11 @@ def match_phase(dev, peaks):
                              path_keys),
             host_path=_path([host], "host CLI cold run: one launch, B=24 window pairs, "
                             "2499 x 2499 x 128 (none when the pair cache resumes)", path_keys),
+            scale_path=_path([scale], f"scale keyframes run: the flow selection's launch, "
+                             f"B={SCALE_VIEWS - 1} consecutive pairs, 2499 x 2499 x 128 (the "
+                             "run's other two launches, the keyframe pairs and the "
+                             "registration pairs, are sized by the keyframes it picks; "
+                             "the scale phase line gives them)", path_keys),
         ))
     return kernels
 
@@ -1242,6 +1389,196 @@ def host_phase(dev):
     return runs["cli_cold"]["launches"]
 
 
+def _global_row(eng, gt, wall_s, launches):
+    """One global-engine run's numbers (cameras from image 1)."""
+    import numpy as np
+
+    ate, extent = trajectory_error(eng.global_poses, gt, first_image=1)
+    e0, e1 = eng.errors_before_after_ba
+    return dict(wall_s=wall_s, launches=launches, cameras=len(eng.global_poses),
+                ate_over_extent=ate / extent, reproj_before_px=float(e0),
+                reproj_after_px=float(e1), tracks=eng.map.num_tracks,
+                observations=eng.map.num_observations, stage_times_s=dict(eng.stage_times),
+                warnings=list(eng.warnings),
+                finite=bool(np.isfinite(eng.map.points()).all()
+                            and all(np.isfinite(np.hstack(p)).all() for p in eng.global_poses)))
+
+
+def _check_pins(label, row, pins):
+    _check(row["finite"], f"{label}: non-finite poses or points")
+    _check(row["ate_over_extent"] <= pins["ate_over_extent"],
+           f"{label}: ATE over extent {row['ate_over_extent']} > {pins['ate_over_extent']}")
+    _check(row["reproj_after_px"] <= pins["reproj_px"],
+           f"{label}: post-BA reprojection {row['reproj_after_px']} px > {pins['reproj_px']}")
+    _check(row["tracks"] >= pins["min_tracks"],
+           f"{label}: {row['tracks']} tracks < {pins['min_tracks']}")
+
+
+def scale_phase(dev):
+    """The global engine's scale-out path and focal self-calibration at the
+    bench widths, each run's launches counted:
+
+    1. keyframes: the port's CLI, ``scale_cli_argv`` on the 47-view dense
+       orbit (auto keyframes, window pairs over them, batched PnP
+       registration of the rest), with a fresh pair cache;
+    2. stream: the same command with ``SCALE_STREAM`` (3 blocks of 16
+       cameras, 2 resident), resumed from run 1's cache;
+    3. retrieval: ``GlobalSfmEngine(**RETRIEVAL_ENGINE)`` on the shuffled
+       planes at the bench configuration;
+    4. selfcal: ``bundle_adjust_selfcal`` on the card and on the CPU on
+       ``focal_observable_arrays(default_rng(5))`` (6% focal error), then the
+       incremental CLI with ``--refine-focal`` on ``selfcal_sequence``.
+
+    Returns run 1's launch counts."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch import cli
+    from sfmfromscratch_tpu_torch.ba.problem import make_problem
+    from sfmfromscratch_tpu_torch.ba.selfcal import bundle_adjust_selfcal
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    engines = []
+
+    def keep(run):
+        def wrapped(self):   # the engine the CLI builds
+            engines.append(self)
+            return run(self)
+        return wrapped
+
+    def timed(fn):
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _launch_counts()
+
+    def run_cli(argv):
+        runs = (SfmEngine.run, GlobalSfmEngine.run)
+        SfmEngine.run, GlobalSfmEngine.run = keep(runs[0]), keep(runs[1])
+        try:
+            with contextlib.redirect_stdout(io.StringIO()):
+                rc, wall, launches = timed(lambda: cli.main(argv))
+        finally:
+            SfmEngine.run, GlobalSfmEngine.run = runs
+        _check(rc == 0, f"CLI {argv} exited {rc}")
+        return engines[-1], wall, launches
+
+    device_flag = [] if dev.type == "cuda" else ["--device", str(dev)]
+    runs, extra = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_scale_") as tmp:
+        dense = os.path.join(tmp, "dense")
+        os.makedirs(dense)
+        K, gt = orbit_sequence(dense, SCALE_VIEWS, SCALE_STEP_DEG)
+        cache = os.path.join(tmp, "cache")
+        eng, wall, launches = run_cli(scale_cli_argv(dense, cache) + device_flag)
+        runs["keyframes"] = _global_row(eng, gt, wall, launches)
+        runs["keyframes"].update(
+            keyframes=list(eng.keyframes), edges=len(eng._edges),
+            failed=sum("registration failed" in w for w in eng.warnings),
+            registration_pairs=2 * (SCALE_VIEWS - len(eng.keyframes)),
+            filter_hyps_used=np.asarray(eng.filter_hyps_used).tolist(),
+            cache_files=len([f for f in os.listdir(cache) if f.endswith(".npz")]))
+        eng, wall, launches = run_cli(scale_cli_argv(dense, cache, *SCALE_STREAM) + device_flag)
+        runs["stream"] = _global_row(eng, gt, wall, launches)
+        st = eng.stream_stats
+        runs["stream"].update(
+            keyframes=list(eng.keyframes),
+            failed=sum("registration failed" in w for w in eng.warnings),
+            stream_stats=dict(windows_run=st.windows_run, sweeps=st.sweeps,
+                              clamped_tracks=st.clamped_tracks,
+                              peak_resident_obs=st.peak_resident_obs,
+                              peak_resident_bytes=st.peak_resident_bytes,
+                              total_obs=st.total_obs, initial_error=st.initial_error,
+                              final_error=st.final_error, window_errors=st.window_errors))
+
+        planes = os.path.join(tmp, "planes")
+        os.makedirs(planes)
+        Kp, gtp = shuffled_planes(planes)
+        eng, wall, launches = timed(lambda: GlobalSfmEngine(
+            planes, PLANES_VIEWS, config=engine_config(), single_K=Kp, device=dev,
+            **RETRIEVAL_ENGINE))
+        runs["retrieval"] = _global_row(eng, gtp, wall, launches)
+        runs["retrieval"]["edges"] = [list(e) for e in eng._edges]
+        runs["retrieval"]["filter_hyps_used"] = np.asarray(eng.filter_hyps_used).tolist()
+
+        pos, kw = focal_observable_arrays(np.random.default_rng(5))
+        ba_kw = dict(max_iters=30, cg_iters=60, ftol=1e-12)
+        (res, s), wall, launches = timed(
+            lambda: bundle_adjust_selfcal(make_problem(*pos, **kw, device=dev), **ba_kw))
+        t0 = time.perf_counter()
+        res_cpu, s_cpu = bundle_adjust_selfcal(make_problem(*pos, **kw, device="cpu"), **ba_kw)
+        extra["selfcal_ba"] = dict(
+            s=float(s), s_cpu=float(s_cpu), final_mean_error=float(res.final_mean_error),
+            final_mean_error_cpu=float(res_cpu.final_mean_error),
+            iterations=res.iterations_used, iterations_cpu=res_cpu.iterations_used,
+            wall_s=wall, cpu_s=time.perf_counter() - t0, launches=launches)
+
+        small = os.path.join(tmp, "selfcal")
+        os.makedirs(small)
+        _, gts = selfcal_sequence(small)
+        eng, wall, launches = run_cli(["reconstruct", small, *SELFCAL_CLI] + device_flag)
+        ate, extent = trajectory_error(eng.global_poses, gts)
+        runs["selfcal"] = dict(
+            wall_s=wall, launches=launches, cameras=len(eng.global_poses),
+            ate_over_extent=ate / extent, focal_scale=eng.focal_scale,
+            reproj_before_px=eng.errors_before_after_ba[0],
+            reproj_after_px=eng.errors_before_after_ba[1], tracks=eng.map.num_tracks,
+            stage_times_s=dict(eng.stage_times), warnings=list(eng.warnings))
+    extra["phase_s"] = time.perf_counter() - t_phase
+
+    want = {"keyframes": dict(SCALE_LAUNCHES), "stream": dict(SCALE_LAUNCHES, match_top2_fused=2),
+            "retrieval": dict(ENGINE_LAUNCHES), "selfcal": dict(SELFCAL_LAUNCHES)}
+    for w in want.values():
+        w["match_top2_fused(bf16=True)"] = 0
+    _print({"phase": "scale", "views": SCALE_VIEWS, "runs": runs, **extra, "pins": PIN_SCALE,
+            "launches": want})
+    for label, w in want.items():
+        _check(runs[label]["launches"] == w, f"scale {label} launches {runs[label]['launches']} != {w}")
+    _check(extra["selfcal_ba"]["launches"] == {k: 0 for k in w}, "selfcal BA launched a kernel")
+
+    kf, sm = runs["keyframes"], runs["stream"]
+    for label, r in (("keyframes", kf), ("stream", sm)):
+        _check(r["cameras"] == SCALE_VIEWS, f"scale {label}: {r['cameras']} cameras")
+        _check(3 < len(r["keyframes"]) < SCALE_VIEWS, f"scale {label}: keyframes {r['keyframes']}")
+        _check(r["failed"] <= 2, f"scale {label}: {r['failed']} failed registrations")
+        _check_pins(f"scale {label}", r, PIN_SCALE[label])
+    _check(sm["keyframes"] == kf["keyframes"], "the resumed run picked other keyframes")
+    _check(kf["cache_files"] == kf["edges"], f"{kf['cache_files']} cache files, {kf['edges']} edges")
+    _check(any(w.startswith("pair cache: resumed") for w in sm["warnings"]), "stream run did not resume")
+    st, e = sm["stream_stats"], kf["reproj_after_px"]
+    _check(st["windows_run"] >= 2, f"stream: {st['windows_run']} windows")
+    _check(st["peak_resident_obs"] < st["total_obs"],
+           f"stream: peak resident {st['peak_resident_obs']} of {st['total_obs']} observations")
+    _check(abs(sm["reproj_after_px"] - e) < max(0.35 * e, 0.1),
+           f"stream error {sm['reproj_after_px']} px against {e} px")
+    _check("ba(stream)" in sm["stage_times_s"] and "ba" not in sm["stage_times_s"],
+           "the stream run did not stream its BA")
+
+    rt = runs["retrieval"]
+    _check(rt["reproj_after_px"] < 2.0, f"retrieval: {rt['reproj_after_px']} px after BA")
+    _check(rt["tracks"] > 40, f"retrieval: {rt['tracks']} tracks")
+    _check(rt["ate_over_extent"] < 0.08, f"retrieval: ATE over extent {rt['ate_over_extent']}")
+    _check_pins("scale retrieval", rt, PIN_SCALE["retrieval"])
+
+    sb, sc = extra["selfcal_ba"], runs["selfcal"]
+    _check(abs(sb["s"] - 1 / 1.06) < 0.01, f"selfcal BA: s = {sb['s']}")
+    _check(sb["final_mean_error"] < 0.35, f"selfcal BA: {sb['final_mean_error']} px")
+    _check(abs(sb["s"] - sb["s_cpu"]) < 1e-3, f"selfcal BA: card s {sb['s']} vs CPU {sb['s_cpu']}")
+    _check(f"focal self-calibration: cumulative scale {sc['focal_scale']:.4f}" in sc["warnings"],
+           f"selfcal CLI warnings {sc['warnings']}")
+    _check(sc["reproj_after_px"] <= sc["reproj_before_px"], "selfcal CLI: BA made it worse")
+    _check(abs(sc["focal_scale"] - 1.0) < 0.05, f"selfcal CLI: focal scale {sc['focal_scale']}")
+    _check(sc["cameras"] == SELFCAL_VIEWS - 1, f"selfcal CLI: {sc['cameras']} cameras")
+    return kf["launches"]
+
+
 def main(argv) -> int:
     only_kernels = "--only-kernels" in argv
     try:
@@ -1284,12 +1621,14 @@ def main(argv) -> int:
         global_ = global_phase(dev)
         orbit = orbit_phase(dev)
         host = host_phase(dev)
+        scale = scale_phase(dev)
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
             k["launches_two_view"] = two_view.get(k["name"], 0)
             k["launches_global"] = global_.get(k["name"], 0)
             k["launches_orbit"] = orbit.get(k["name"], 0)
             k["launches_host"] = host.get(k["name"], 0)
+            k["launches_scale"] = scale.get(k["name"], 0)
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

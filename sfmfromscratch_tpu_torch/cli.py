@@ -8,10 +8,12 @@ unless it says otherwise.
     python -m sfmfromscratch_tpu_torch.cli reconstruct seq --max-img 4 --device cpu
     python -m sfmfromscratch_tpu_torch.cli resize in_dir out_dir --ratio 0.3
 
-Flags whose options the port's engines do not run (``--refine-focal``,
-``--pair-mode retrieval``, ``--keyframe-step 2``, ``--stream-ba-window``)
-reach the engine, which raises ``NotImplementedError``. ``show`` needs the
-3-D viewer, which is not ported: it exits non-zero and says so.
+Every ``reconstruct`` flag of the JAX CLI runs: ``--refine-focal`` on both
+pipelines, and on ``--pipeline global`` ``--keyframe-step k|auto`` with
+``--keyframe-flow-px``, ``--pair-mode retrieval|both`` with
+``--retrieval-k``, and ``--stream-ba-window`` with
+``--stream-ba-block-cams``. ``show`` needs the 3-D viewer, which is not
+ported: it exits non-zero and says so.
 """
 
 from __future__ import annotations
@@ -71,7 +73,7 @@ def main(argv=None) -> int:
                           "resumes the matching at the first uncomputed pair")
     rec.add_argument("--refine-focal", action="store_true",
                      help="self-calibrate a shared focal scale inside BA "
-                          "(not ported: the engine raises)")
+                          "(EXIF focals are nominal)")
     rec.add_argument("--export-ply", default=None,
                      help="also write a colored PLY point cloud here")
     rec.add_argument("--export-colmap", default=None,
@@ -83,15 +85,20 @@ def main(argv=None) -> int:
                           "averaging; best for wide-baseline/unordered sets)")
     rec.add_argument("--pair-mode", choices=["window", "retrieval", "both"],
                      default="window",
-                     help="global pipeline pair proposal (only 'window' is ported)")
+                     help="global pipeline pair proposal: sequential window, "
+                          "VLAD retrieval (unordered sets), or both")
     rec.add_argument("--retrieval-k", type=int, default=6)
     rec.add_argument("--keyframe-step", default="1",
-                     help="global pipeline: reconstruct every k-th frame "
-                          "(only 1 is ported)")
+                     help="global pipeline: reconstruct every k-th frame and "
+                          "register the rest by batched PnP ('auto' = "
+                          "flow-adaptive selection; best for dense video)")
     rec.add_argument("--keyframe-flow-px", type=float, default=None,
-                     help="flow target for --keyframe-step auto")
+                     help="flow target for --keyframe-step auto (default 5%% "
+                          "of the image diagonal)")
     rec.add_argument("--stream-ba-window", type=int, default=None,
-                     help="global pipeline: out-of-core final BA (not ported)")
+                     help="global pipeline: run the final BA out of core "
+                          "through the block store (pipeline/streaming.py) with "
+                          "this many resident blocks")
     rec.add_argument("--stream-ba-block-cams", type=int, default=32,
                      help="cameras per map block for --stream-ba-window")
     rec.add_argument("--device", default=None,

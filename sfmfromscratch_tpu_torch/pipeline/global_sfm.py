@@ -1,13 +1,16 @@
 """Global Structure-from-Motion engine: motion averaging instead of a chain
-(counterpart of ``sfmfromscratch_tpu/pipeline/global_sfm.py`` on the path
-its ``run()`` takes with window pairs, every image a keyframe, no streaming
-BA, no mesh and adaptive RANSAC).
+(counterpart of ``sfmfromscratch_tpu/pipeline/global_sfm.py``, without a
+mesh and with adaptive RANSAC).
 
 Stages, each batched over the whole sequence:
 
-1. features (one Harris launch per pyramid level for all images);
-2. window matching (one matcher launch for all pairs) and the adaptive
-   F-RANSAC filter on every pair;
+1. features (one Harris launch per pyramid level for all images); with
+   ``keyframe_step="auto"``, keyframes chosen by the median flow of every
+   consecutive pair (one matcher launch);
+2. matching of the candidate pairs (one matcher launch for all of them) and
+   the adaptive F-RANSAC filter on every pair. Candidates are window pairs
+   over the keyframes (every image unless ``keyframe_step`` > 1), VLAD
+   retrieval proposals (``pair_mode="retrieval"``), or both;
 3. relative poses of every pair by batched adaptive essential RANSAC, then
    Sampson refinement of every edge, and the planar-degeneracy fix;
 4. the cycle filter and connectivity repair, chordal + IRLS rotation
@@ -16,8 +19,13 @@ Stages, each batched over the whole sequence:
    translation averaging;
 5. union-find tracks over every pair's inlier matches;
 6. multiview triangulation of every track with observation gating;
-7. the map, then ``ba_rounds`` bundle adjustments with camera 0 frozen and
-   re-gating between them.
+7. the map; the non-keyframes, if any, register against it: each frame is
+   matched to its two nearest keyframes (one matcher launch for all of
+   them), F-filtered, linked to the keyframes' tracks, and every frame's
+   pose comes from one vmapped P3P RANSAC;
+8. ``ba_rounds`` bundle adjustments with camera 0 frozen and re-gating
+   between them, or with ``stream_ba_window`` the out-of-core streaming BA
+   (``pipeline/streaming.py``).
 
 The host numpy of the view-graph stages is the JAX module's, copied as it
 stands. Device stages run on the engine's device on edge lists padded to the
@@ -29,6 +37,8 @@ result. Camera c observes through image c+1; camera 0 is the gauge anchor.
 from __future__ import annotations
 
 import dataclasses
+import shutil
+import tempfile
 import time
 from typing import Dict, List, Optional
 
@@ -50,12 +60,18 @@ from sfmfromscratch_tpu_torch.geometry.homography import (
     fit_homography,
     pose_from_homography_batch,
 )
-from sfmfromscratch_tpu_torch.geometry.ransac import ransac_essential_pose_adaptive_batch
+from sfmfromscratch_tpu_torch.geometry.pnp import pnp_ransac
+from sfmfromscratch_tpu_torch.geometry.ransac import (
+    ransac_essential_pose_adaptive_batch,
+    ransac_fundamental_adaptive_batch,
+)
 from sfmfromscratch_tpu_torch.geometry.triangulation import triangulate_multiview, two_view_depths
 from sfmfromscratch_tpu_torch.geometry.two_view import refine_relative_pose
 from sfmfromscratch_tpu_torch.native.bindings import build_tracks
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
+from sfmfromscratch_tpu_torch.ops.retrieval import retrieval_similarity
 from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+from sfmfromscratch_tpu_torch.pipeline.streaming import MapBlockStore, stream_bundle_adjust
 from sfmfromscratch_tpu_torch.types import Features
 
 
@@ -73,15 +89,27 @@ def _pad_edges(a: torch.Tensor, num_padded: int, template=0.0) -> torch.Tensor:
     return torch.cat([a, t.expand((pad,) + tuple(a.shape[1:]))], dim=0)
 
 
+def nanmedian_rows(d: torch.Tensor) -> torch.Tensor:
+    """Median of each row over its non-NaN entries, the two middle values
+    averaged for an even count (``jnp.nanmedian`` and ``np.nanmedian``;
+    ``torch.nanmedian`` returns the lower one). NaN for an all-NaN row."""
+    return torch.nanquantile(d, 0.5, dim=-1)
+
+
+# Frames per vmapped PnP launch of the registration: the hypothesis scores
+# take (frames x 4 x hypotheses x points) floats a temporary.
+_REGISTER_CHUNK = 64
+
+
 class GlobalSfmEngine(SfmEngine):
     """Global SfM over an image sequence, with :class:`SfmEngine`'s result
     contract (map, global_poses, global_K, errors, save_data).
 
     ``device=None`` runs on the CUDA card and raises without one. The pair
-    cache and the match-graph shards work as in :class:`SfmEngine`. Options
-    the port does not run raise ``NotImplementedError``: other pair modes,
-    keyframing, streaming BA, a mesh, focal self-calibration, another
-    extractor and fixed-count RANSAC.
+    cache, the match-graph shards and ``refine_focal`` work as in
+    :class:`SfmEngine` (every BA round self-calibrates). Options the port
+    does not run raise ``NotImplementedError``: a mesh, another extractor
+    and fixed-count RANSAC.
     """
 
     # Every window pair feeds the view graph, pair (1, 2) included.
@@ -109,15 +137,22 @@ class GlobalSfmEngine(SfmEngine):
     ):
         if pair_mode not in ("window", "retrieval", "both"):
             raise ValueError(f"pair_mode must be 'window', 'retrieval' or 'both', got {pair_mode!r}")
-        off_path = {
-            "pair_mode": pair_mode != "window",
-            "keyframe_step": keyframe_step != 1,
-            "stream_ba_window": stream_ba_window is not None,
-        }
-        for name, set_ in off_path.items():
-            if set_:
-                raise NotImplementedError(
-                    f"GlobalSfmEngine option {name!r} is off the ported window path")
+        # With stream_ba_window the final BA runs out of core: the map
+        # spills to a block store and a window of stream_ba_window blocks of
+        # stream_ba_block_cams cameras is resident per solve.
+        self.stream_ba_window = stream_ba_window
+        self.stream_ba_block_cams = stream_ba_block_cams
+        self.stream_stats = None
+        # keyframe_step k > 1: the view graph runs on every k-th image and
+        # the rest register by batched PnP; "auto" picks keyframes from the
+        # measured flow (keyframe_flow_px, default 5% of the image diagonal).
+        self.keyframe_step = "auto" if keyframe_step == "auto" else max(1, int(keyframe_step))
+        self.keyframe_flow_px = keyframe_flow_px
+        self._auto_kfs: Optional[List[int]] = None
+        # "window" pairs an ordered sequence; "retrieval" proposes each
+        # image's retrieval_k most similar images (VLAD); "both" unions them.
+        self.pair_mode = pair_mode
+        self.retrieval_k = retrieval_k
         self.rel_num_hypotheses = rel_num_hypotheses
         self.min_edge_inliers = min_edge_inliers
         self.obs_gate_px = obs_gate_px
@@ -144,6 +179,102 @@ class GlobalSfmEngine(SfmEngine):
     def _check_config(self) -> None:
         if not self.config.ransac.adaptive:
             raise NotImplementedError("only the adaptive RANSAC stages are ported")
+
+    # ------------------------------------------------------------------ pairs
+
+    @property
+    def keyframed(self) -> bool:
+        return self.keyframe_step == "auto" or self.keyframe_step > 1
+
+    @property
+    def keyframes(self) -> List[int]:
+        """1-based keyframe image ids: every image at ``keyframe_step`` 1,
+        every k-th and the last at k, the flow-selected ones at "auto"
+        (after feature extraction)."""
+        if self.keyframe_step == "auto":
+            return self._auto_kfs or list(range(1, self.max_img + 1))
+        kfs = list(range(1, self.max_img + 1, self.keyframe_step))
+        if kfs[-1] != self.max_img:
+            kfs.append(self.max_img)
+        return kfs
+
+    def _select_keyframes(self, feats: Features) -> None:
+        """Flow-adaptive keyframes (``global_sfm.py:252-289``): match every
+        consecutive pair, take each pair's median displacement of its
+        matches, and start a new keyframe whenever the flow accumulated since
+        the last one reaches the target; the last image is always one."""
+        t0 = time.perf_counter()
+        C = self.max_img
+        res, p1, p2 = self._match_pair_list(feats, [(i, i + 1) for i in range(1, C)])
+        d = torch.linalg.norm(p2 - p1, dim=-1)
+        d = torch.where(res.mask, d, float("nan"))
+        flows = np.nan_to_num(nanmedian_rows(d).cpu().numpy().astype(np.float64), nan=0.0)
+
+        tau = self.keyframe_flow_px
+        if tau is None:
+            K1 = self._intrinsics(1)
+            tau = 0.05 * 2.0 * float(np.hypot(K1[0, 2], K1[1, 2]))
+        kfs = [1]
+        acc = 0.0
+        for f in range(2, C + 1):
+            acc += flows[f - 2]
+            if acc >= tau:
+                kfs.append(f)
+                acc = 0.0
+        if kfs[-1] != C:
+            kfs.append(C)
+        self._auto_kfs = kfs
+        self.warnings.append(f"auto keyframes: {len(kfs)}/{C} at flow target {tau:.1f} px")
+        self._stage_end("keyframes", t0)
+
+    def _prepare_pair_selection(self, feats: Features) -> None:
+        if self.keyframe_step == "auto" and self._auto_kfs is None:
+            self._select_keyframes(feats)
+
+    def _candidate_pairs(self, feats: Features):
+        """Window pairs over the keyframe subsequence (every image when not
+        keyframed), VLAD retrieval proposals among the keyframes, or both
+        (``global_sfm.py:291-336``)."""
+        if self.keyframed:
+            kfs = self.keyframes
+            pairs = set()
+            if self.pair_mode in ("window", "both"):
+                for a in range(len(kfs) - 1):
+                    for d in range(1, self.pair_window + 1):
+                        if a + d < len(kfs):
+                            pairs.add((kfs[a], kfs[a + d]))
+        else:
+            pairs = (set(super()._candidate_pairs(feats))
+                     if self.pair_mode in ("window", "both") else set())
+        if self.pair_mode in ("retrieval", "both"):
+            pairs |= self._retrieval_pairs(feats)
+        return sorted(pairs)
+
+    def _retrieval_pairs(self, feats: Features, scores: Optional[torch.Tensor] = None) -> set:
+        """Each (key)frame's ``retrieval_k`` most similar (key)frames by VLAD
+        cosine, as (min, max) image pairs. A stable descending sort breaks
+        ties toward the lower index, as ``lax.top_k`` does; proposals of
+        itself or of a masked image (score <= -1.5) are dropped. ``scores``
+        replaces the vocabulary's random init (a test feeds JAX's)."""
+        C = self.max_img
+        S = retrieval_similarity(self._generator, feats.descriptors, feats.keypoints.mask,
+                                 scores=scores)
+        if self.keyframed:
+            kf = torch.zeros(C, dtype=torch.bool, device=S.device)
+            kf[[k - 1 for k in self.keyframes]] = True
+            S = torch.where(kf[None, :], S, -2.0)
+            S = torch.where(kf[:, None], S, -2.0)
+        k = min(self.retrieval_k, C - 1)
+        vals, nbr = torch.sort(S, dim=1, descending=True, stable=True)
+        vals, nbr = vals[:, :k].cpu().numpy(), nbr[:, :k].cpu().numpy()
+        pairs = set()
+        for i in range(C):
+            for col, j in enumerate(nbr[i]):
+                if int(j) == i or vals[i, col] <= -1.5:
+                    continue
+                a, b = i + 1, int(j) + 1
+                pairs.add((min(a, b), max(a, b)))
+        return pairs
 
     # ------------------------------------------------------------------ stages
 
@@ -820,6 +951,172 @@ class GlobalSfmEngine(SfmEngine):
             self.global_poses.append((rvecs[c], self._t_cams[c]))
             self.global_K.append(self._K_all[c])
 
+    def _register_nonkeyframes(self, feats: Features) -> None:
+        """Register every non-keyframe against the keyframe map
+        (``global_sfm.py:1310-1465``): match each frame to its two nearest
+        keyframes and F-filter those pairs, link the inliers to the
+        keyframes' tracks, and solve every frame's pose at once; inlier
+        observations join the map before the final BA."""
+        t0 = time.perf_counter()
+        kfs = self.keyframes
+        kf_set = set(kfs)
+        non_kf = [f for f in range(1, self.max_img + 1) if f not in kf_set]
+        if not non_kf:
+            return
+        reg_pairs = []
+        for f in non_kf:
+            below = max((k for k in kfs if k < f), default=None)
+            above = min((k for k in kfs if k > f), default=None)
+            for k in (below, above):
+                if k is not None:
+                    reg_pairs.append((k, f))
+        self._register_frames(feats.keypoints.capacity, non_kf,
+                              self._registration_matches(feats, reg_pairs))
+        self._stage_end("register", t0)
+
+    def _registration_matches(self, feats: Features, reg_pairs) -> Dict[tuple, tuple]:
+        """(keyframe, frame) pairs matched in one launch and F-filtered in
+        one batch; ``{pair: (indices (M, 2), filtered mask (M,), frame
+        pixels (M, 2))}`` on the host."""
+        rcfg = self.config.ransac
+        res, p1, p2 = self._match_pair_list(feats, reg_pairs)
+        fres = ransac_fundamental_adaptive_batch(
+            self._generator, p1, p2, res.mask, max_hypotheses=rcfg.max_hypotheses(),
+            stage_size=rcfg.stage_size, threshold=rcfg.epipolar_threshold,
+            confidence=rcfg.prob_success,
+        )
+        idx_np, filt_np, p2_np = (v.cpu().numpy() for v in (res.indices, fres.inliers, p2))
+        return {k: (idx_np[r], filt_np[r], p2_np[r]) for r, k in enumerate(reg_pairs)}
+
+    def _register_frames(self, capacity: int, non_kf, results: Dict[tuple, tuple],
+                         uniforms: Optional[torch.Tensor] = None) -> None:
+        """Poses of the frames ``non_kf`` from their registration matches
+        ``results``: 2D-3D pairs through the keyframes' gated tracks, deduped
+        per frame (first occurrence), then P3P RANSAC at min(512, the PnP
+        hypotheses) vmapped over the frames. ``uniforms`` (F, hypotheses, 3)
+        replaces the draw from the engine's generator. A frame whose
+        registration fails keeps its nearest keyframe's pose."""
+        kfs = self.keyframes
+        # slot -> compacted track id per keyframe (-1: no surviving track)
+        slot_track = {k: np.full(capacity, -1, np.int64) for k in kfs}
+        obs_img = np.asarray(self._obs_cam, np.int64) + 1
+        for k in kfs:
+            m = obs_img == k
+            if m.any():
+                slot_track[k][np.asarray(self._obs_kp)[m]] = np.asarray(self._obs_pt, np.int64)[m]
+
+        M2 = 2 * int(next(iter(results.values()))[0].shape[0])
+        F = len(non_kf)
+        pts = self.map.points()
+        X_all = np.zeros((F, M2, 3), np.float32)
+        x_all = np.zeros((F, M2, 2), np.float32)
+        t_all = np.full((F, M2), -1, np.int64)
+        m_all = np.zeros((F, M2), bool)
+        K_all = np.zeros((F, 3, 3), np.float32)
+        pairs_of_frame: Dict[int, list] = {}
+        for p in results:
+            pairs_of_frame.setdefault(p[1], []).append(p)
+        for fi, f in enumerate(non_kf):
+            K_all[fi] = self._intrinsics(f)
+            off = 0
+            for k in pairs_of_frame.get(f, ()):
+                idx, inl, p2c = results[k]
+                tr = slot_track[k[0]][idx[:, 0]]
+                sel = inl & (tr >= 0)
+                n = int(sel.sum())
+                if n:
+                    sl = slice(off, off + n)
+                    X_all[fi, sl] = pts[tr[sel]]
+                    x_all[fi, sl] = p2c[sel]
+                    t_all[fi, sl] = tr[sel]
+                    m_all[fi, sl] = True
+                    off += n
+        # Two keyframes can contribute the same track: keep the first.
+        for fi in range(F):
+            _, first = np.unique(t_all[fi], return_index=True)
+            keep = np.zeros(M2, bool)
+            keep[first] = True
+            m_all[fi] &= keep
+
+        reg_hyp = min(512, self._pnp_hyp)
+        if uniforms is None:
+            uniforms = torch.rand((F, reg_hyp, 3), generator=self._generator, device=self.device)
+        thr = self.config.ransac.pnp_reproj_threshold
+
+        def one(X, x, K, m, u):
+            out = pnp_ransac(None, X, x, K, mask=m, num_hypotheses=reg_hyp,
+                             reproj_threshold=thr, uniforms=u)
+            return so3_log(out.R), out.t, out.inliers, out.ok
+
+        parts = []
+        for c0 in range(0, F, _REGISTER_CHUNK):
+            sl = slice(c0, c0 + _REGISTER_CHUNK)
+            parts.append(torch.func.vmap(one)(
+                self._dev(X_all[sl]), self._dev(x_all[sl]), self._dev(K_all[sl]),
+                self._dev(m_all[sl], torch.bool), uniforms[sl].to(self.device)))
+        rv_np, t_np, inl_np, ok_np = (torch.cat([p[i] for p in parts]).cpu().numpy()
+                                      for i in range(4))
+        for fi, f in enumerate(non_kf):
+            cam = f - 1
+            if bool(ok_np[fi]) and m_all[fi].sum() >= 6:
+                rvec = rv_np[fi].astype(np.float64)
+                tv = t_np[fi].astype(np.float64)
+                good = inl_np[fi] & m_all[fi]
+                self.map.add_observations(np.where(good, t_all[fi], -1),
+                                          x_all[fi].astype(np.float64), cam)
+            else:
+                near = min(kfs, key=lambda k: abs(k - f))
+                rvec, tv = self.global_poses[near - 1]
+                self.warnings.append(f"frame {f}: PnP registration failed, keyframe pose kept")
+            self.global_poses[cam] = (np.asarray(rvec), np.asarray(tv))
+
+    def _stream_ba(self) -> None:
+        """The final BA through the advancing-window block store
+        (``global_sfm.py:1502-1549``): spill the map to camera blocks in a
+        temporary directory, sweep the window over them ``max(2,
+        ba_rounds)`` times with a regate between sweeps, read the refined
+        state back. No focal self-calibration on this path."""
+        t0 = time.perf_counter()
+        frames, tracks, xy = self.map.observations()
+        cam_params = np.array([np.hstack([rv, t]) for rv, t in self.global_poses])
+        root = tempfile.mkdtemp(prefix="mapblocks_")
+        try:
+            store = MapBlockStore.build_from_arrays(
+                root, cam_params, np.stack(self.global_K).astype(np.float64),
+                self.map.points(), frames, tracks, xy, block_cams=self.stream_ba_block_cams)
+            ba = self.config.ba
+            stats = stream_bundle_adjust(
+                store, window_blocks=self.stream_ba_window, sweeps=max(2, self.ba_rounds),
+                max_iters=ba.max_lm_iters, cg_iters=60, ftol=ba.ftol,
+                huber_delta=ba.huber_delta, regate_px=self.regate_px, device=self.device)
+            cams, _ = store.read_cameras()
+            ids, xyz = store.read_points()
+            pts = self.map.points().copy()
+            pts[ids] = xyz
+            self.map.update_points(pts)
+            self.global_poses = [(np.asarray(c[:3], np.float64), np.asarray(c[3:], np.float64))
+                                 for c in cams]
+            self.errors_before_after_ba = (stats.initial_error, stats.final_error)
+            self.stream_stats = stats
+        finally:
+            shutil.rmtree(root, ignore_errors=True)
+        self._stage_end("ba(stream)", t0)
+
+    def _ba_rounds(self) -> None:
+        """Up to ``ba_rounds`` bundle adjustments with camera 0 frozen (the
+        averaging gauge, R = I and c = 0), re-gating the observations
+        between them; stops early when a regate drops nothing."""
+        err_before = None
+        for r in range(self.ba_rounds):
+            t_r = time.perf_counter()
+            self._global_ba(freeze_before=1)
+            self.stage_times[f"ba.round{r + 1}"] = time.perf_counter() - t_r
+            if err_before is None:
+                err_before = self.errors_before_after_ba[0]
+            if r < self.ba_rounds - 1 and self._regate_observations() == 0:
+                break
+        self.errors_before_after_ba = (err_before, self.errors_before_after_ba[1])
+
     def _regate_observations(self) -> int:
         """Drop observations whose residual under the post-BA model exceeds
         ``regate_px`` and tracks left with < 2 observations, then rebuild the
@@ -858,23 +1155,19 @@ class GlobalSfmEngine(SfmEngine):
     def run(self) -> "GlobalSfmEngine":
         t0 = time.perf_counter()
         feats = self._extract_all_features()
+        self._prepare_pair_selection(feats)
         self._match_pairs(feats)
         self._relative_poses()
         self._motion_averaging()
         self._build_tracks(feats)
         self._triangulate()
         self._populate_map()
-        # Camera 0 frozen: the averaging gauge (R=I, c=0) anchors BA.
-        err_before = None
-        for r in range(self.ba_rounds):
-            t_r = time.perf_counter()
-            self._global_ba(freeze_before=1)
-            self.stage_times[f"ba.round{r + 1}"] = time.perf_counter() - t_r
-            if err_before is None:
-                err_before = self.errors_before_after_ba[0]
-            if r < self.ba_rounds - 1 and self._regate_observations() == 0:
-                break
-        self.errors_before_after_ba = (err_before, self.errors_before_after_ba[1])
+        if self.keyframed:
+            self._register_nonkeyframes(feats)
+        if self.stream_ba_window is not None:
+            self._stream_ba()
+        else:
+            self._ba_rounds()
         self.stage_times["total"] = time.perf_counter() - t0
         if self.model_name is not None:
             self.save_data()

@@ -27,8 +27,9 @@ as the fused front.
 
 With ``chain_refresh="averaging"`` the chain's poses are refreshed by motion
 averaging over the map's own tracks (``pipeline/chain_refresh.py``) before
-the BA. ``mesh``, ``feature_extractor`` and ``refine_focal`` raise
-``NotImplementedError``.
+the BA. With ``refine_focal`` the final BA optimises one focal scale shared
+by every camera (``ba/selfcal.py``) and rescales ``global_K``. ``mesh`` and
+``feature_extractor`` raise ``NotImplementedError``.
 
 ``_candidate_pairs``, ``_match_pairs`` and ``_global_ba(freeze_before=...)``
 serve ``GlobalSfmEngine`` (``pipeline/global_sfm.py``), which inherits them.
@@ -46,6 +47,7 @@ import torch
 
 from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
 from sfmfromscratch_tpu_torch.ba.problem import make_problem, pad_problem
+from sfmfromscratch_tpu_torch.ba.selfcal import bundle_adjust_selfcal
 from sfmfromscratch_tpu_torch.config import PipelineConfig
 from sfmfromscratch_tpu_torch.geometry.camera import SensorType, intrinsics_from_exif, projection_matrix
 from sfmfromscratch_tpu_torch.geometry.pnp import pnp_ransac
@@ -264,7 +266,6 @@ class SfmEngine:
         off_path = {
             "mesh": mesh is not None,
             "feature_extractor": feature_extractor is not None,
-            "refine_focal": bool(refine_focal),
         }
         for name, set_ in off_path.items():
             if set_:
@@ -302,6 +303,10 @@ class SfmEngine:
         self.local_ba_every = local_ba_every
         self.local_ba_window = local_ba_window
         self.chain_refresh = chain_refresh
+        # Focal self-calibration: the final BA optimises one focal scale
+        # shared by every camera (ba/selfcal.py); focal_scale accumulates it.
+        self.refine_focal = bool(refine_focal)
+        self.focal_scale: float = 1.0
         # Each matched pair persists here; a later run resumes the pairs
         # written under the same configuration (one file per pair).
         self.pair_cache_dir = pair_cache_dir
@@ -541,6 +546,18 @@ class SfmEngine:
                 pass
         return cached
 
+    def _match_pair_list(self, feats: Features, pairs):
+        """Ratio-test matches of ``pairs`` (1-based image ids) in one matcher
+        launch; returns ``(MatchResult, p1, p2)`` on the device. The JAX
+        engines split this into memory-budgeted chunks of pairs; the card
+        takes every pair at once."""
+        mcfg = self.config.matcher
+        pi = torch.tensor([p[0] - 1 for p in pairs], device=self.device)
+        pj = torch.tensor([p[1] - 1 for p in pairs], device=self.device)
+        return match_pairs_batch(
+            feats.descriptors, feats.keypoints.mask, feats.keypoints.xf, feats.keypoints.yf,
+            pi, pj, ratio_threshold=mcfg.ratio_threshold, max_matches=mcfg.max_matches)
+
     def _match_pairs(self, feats: Features) -> None:
         """Matching and F-RANSAC filtering of the candidate pairs
         (``incremental.py:727-840``): this shard's pairs, less those the pair
@@ -552,7 +569,6 @@ class SfmEngine:
         restart point but differs from an uninterrupted one."""
         dev = self.device
         rcfg = self.config.ransac
-        mcfg = self.config.matcher
         t0 = time.perf_counter()
         filter_all = bool(getattr(self, "_filter_all_pairs", False))
         pairs = self._candidate_pairs(feats)
@@ -571,12 +587,7 @@ class SfmEngine:
 
         results = {}
         if todo:
-            pi = torch.tensor([k[0] - 1 for k in todo], device=dev)
-            pj = torch.tensor([k[1] - 1 for k in todo], device=dev)
-            res, p1, p2 = match_pairs_batch(
-                feats.descriptors, feats.keypoints.mask, feats.keypoints.xf, feats.keypoints.yf,
-                pi, pj, ratio_threshold=mcfg.ratio_threshold, max_matches=mcfg.max_matches,
-            )
+            res, p1, p2 = self._match_pair_list(feats, todo)
             t0 = self._stage_end("matching", t0)
             rows = [r for r, k in enumerate(todo) if filter_all or k != (1, 2)]
             filt = res.mask
@@ -859,11 +870,24 @@ class SfmEngine:
             cam_fixed=np.arange(num_cams) < freeze_before, device=self.device,
         ))
         ba = self.config.ba
-        res = bundle_adjust(
-            problem, max_iters=ba.max_lm_iters, cg_iters=60, init_damping=ba.init_damping,
-            damping_up=ba.damping_up, damping_down=ba.damping_down, ftol=ba.ftol,
-            huber_delta=ba.huber_delta,
-        )
+        kw = dict(max_iters=ba.max_lm_iters, cg_iters=60, init_damping=ba.init_damping,
+                  damping_up=ba.damping_up, damping_down=ba.damping_down, ftol=ba.ftol,
+                  huber_delta=ba.huber_delta)
+        # The final BA only: a scaled K in a local BA would leave the chain
+        # registering later frames at the unscaled K.
+        if self.refine_focal and stage == "ba":
+            res, s_dev = bundle_adjust_selfcal(problem, **kw)
+            s = float(s_dev)
+            self.focal_scale *= s
+            for i in range(len(self.global_K)):
+                Kn = np.asarray(self.global_K[i], np.float64).copy()
+                Kn[0, 0] *= s
+                Kn[1, 1] *= s
+                self.global_K[i] = Kn
+            self.warnings.append(
+                f"focal self-calibration: cumulative scale {self.focal_scale:.4f}")
+        else:
+            res = bundle_adjust(problem, **kw)
         pts = res.points[:num_pts].cpu().numpy()
         cams = res.cam_params[:num_cams].cpu().numpy()
         self.errors_before_after_ba = (float(res.initial_mean_error), float(res.final_mean_error))

@@ -15,6 +15,7 @@ import os
 import re
 
 import jax
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -22,6 +23,7 @@ import torch
 from sfmfromscratch_tpu import cli as jcli
 from sfmfromscratch_tpu.ba import lm as jlm
 from sfmfromscratch_tpu.ba import problem as jprob
+from sfmfromscratch_tpu.geometry.ransac import ransac_essential_pose as jess
 from sfmfromscratch_tpu.io import export as jexport
 from sfmfromscratch_tpu.pipeline import checkpoint as jckpt
 from sfmfromscratch_tpu.pipeline import global_sfm as jglobal
@@ -30,6 +32,7 @@ from sfmfromscratch_tpu.pipeline import incremental as jinc
 from sfmfromscratch_tpu_torch import cli as tcli
 from sfmfromscratch_tpu_torch import interop
 from sfmfromscratch_tpu_torch.ba import lm as tlm
+from sfmfromscratch_tpu_torch.geometry.ransac import ransac_essential_pose as tess
 from sfmfromscratch_tpu_torch.pipeline import checkpoint as tckpt
 from sfmfromscratch_tpu_torch.pipeline import global_sfm as tglobal
 from sfmfromscratch_tpu_torch.pipeline import incremental as tinc
@@ -533,11 +536,29 @@ def test_cli_prints_the_jax_lines(scene, tmp_path, capsys):
     ["--pipeline", "global", "--keyframe-step", "2"],
     ["--pipeline", "global", "--stream-ba-window", "4"],
 ])
-def test_cli_flags_not_ported_raise(scene, tmp_path, flags):
-    """A flag whose option the port does not run reaches the engine, which
-    raises ``NotImplementedError`` before it reads an image."""
-    with pytest.raises(NotImplementedError):
-        tcli.main(_cli_argv(scene, tmp_path, "--device", "cpu", *flags))
+def test_cli_flags_not_ported_raise(scene, tmp_path, flags, monkeypatch):
+    """Every ``reconstruct`` flag of the JAX CLI now runs in the port's: each
+    of these reaches the engine as its option (the engine's ``run`` is
+    stubbed here; the options' runs are tested in ``test_torch_selfcal``,
+    ``test_torch_keyframes``, ``test_torch_retrieval`` and
+    ``test_torch_streaming``)."""
+    GlobalSfmEngine = tglobal.GlobalSfmEngine
+    built = []
+
+    def run(self):
+        built.append(self)
+        self.errors_before_after_ba = (1.0, 0.5)
+        return self
+
+    monkeypatch.setattr(tinc.SfmEngine, "run", run)
+    monkeypatch.setattr(GlobalSfmEngine, "run", run)
+    assert tcli.main(_cli_argv(scene, tmp_path, "--device", "cpu", *flags)) == 0
+    (eng,) = built
+    want = {"--refine-focal": ("refine_focal", True), "--pair-mode": ("pair_mode", "retrieval"),
+            "--keyframe-step": ("keyframe_step", 2), "--stream-ba-window": ("stream_ba_window", 4)}
+    name, value = want[next(f for f in flags if f in want)]
+    assert getattr(eng, name) == value
+    assert isinstance(eng, GlobalSfmEngine) is ("--pipeline" in flags)
 
 
 def test_cli_defaults_match_jax():
@@ -615,3 +636,38 @@ def test_scan_chain_is_chosen_only_without_host_options(scene):
         t = _port_engine(scene, auto_run=False, **kw)
         assert t._use_scan_chain() == j._use_scan_chain(), kw
     assert dataclasses.asdict(_port_config()) == dataclasses.asdict(_jax_config())
+
+
+def test_recover_pose_of_a_pair_without_matches():
+    """The stage where the recovery run parts between the packages (the
+    port's ATE over extent 0.123-0.179 over config.seed 0-4 on the CPU
+    against JAX's 0.292-0.319; ``tools/host_pins.py``). A flat frame's pairs
+    have no valid match, so every slot holds the padded correspondence of
+    keypoint 0 and every 8-point sample of the essential RANSAC is that one
+    point eight times: the 8x9 system has rank 1 and the relative pose is
+    whichever vector of its 8-dimensional null space the SVD returns. Each
+    package's pick is fixed by its SVD, not by its draws (the same R for two
+    unrelated sets of uniforms, to 1e-6), so the recovered poses of the flat
+    frame and the one after it are arbitrary and differ between the
+    packages whatever the seed. On a pair with matches the two agree
+    (``test_recover_pose_matches_jax``)."""
+    n = 600
+    K = np.array([[520.0, 0, 240], [0, 520.0, 180], [0, 0, 1]], np.float32)
+    p1 = np.tile(np.float32([9.0, 9.0]), (n, 1))
+    p2 = np.tile(np.float32([242.38538, 113.41611]), (n, 1))
+    mask = np.zeros(n, bool)
+    x1, x2 = np.c_[p1[:8], np.ones(8)], np.c_[p2[:8], np.ones(8)]
+    A = np.einsum("ni,nj->nij", x2, x1).reshape(8, 9)
+    assert np.linalg.matrix_rank(A) == 1
+    kw = dict(num_hypotheses=256, threshold=1.0, min_cheirality_frac=0.5)
+    jR, tR = [], []
+    for seed in (1, 2):
+        key = jax.random.key(seed)
+        jR.append(np.asarray(jess(key, *(jnp.asarray(a) for a in (p1, p2, K, K, mask)),
+                                  **kw).R))
+        u = torch.as_tensor(np.asarray(jax.random.uniform(key, (256, 8))))
+        tR.append(tess(None, *(torch.as_tensor(a) for a in (p1, p2, K, K, mask)),
+                       uniforms=u, **kw).R.numpy())
+    for R in (jR, tR):
+        np.testing.assert_allclose(R[0], R[1], atol=1e-6)
+        np.testing.assert_allclose(R[0] @ R[0].T, np.eye(3), atol=1e-5)

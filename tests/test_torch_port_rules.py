@@ -72,9 +72,12 @@ _SLICE_4 = ("geometry/averaging.py", "geometry/two_view.py", "geometry/triangula
 # profiling, the CLI).
 _SLICE_5 = ("pipeline/checkpoint.py", "io/export.py", "io/images.py", "utils/profiling.py",
             "cli.py")
+# The modules of the scale-out slice (focal self-calibration, retrieval,
+# streaming BA).
+_SLICE_6 = ("ba/selfcal.py", "ops/retrieval.py", "pipeline/streaming.py")
 
 
-@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5)
+@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5 + _SLICE_6)
 def test_engine_slice_modules_import_no_jax(rel):
     """Each module of the engine slices exists beside its JAX twin
     (``interop`` is the port's own), and importing it alone in a fresh
@@ -174,9 +177,14 @@ def test_global_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
 ])
 def test_engine_options_off_the_default_path_raise(option, tmp_path):
     """Every option of the JAX engine that the port does not run raises
-    ``NotImplementedError``; none is ignored."""
+    ``NotImplementedError``; none is ignored. ``refine_focal`` is ported:
+    the engine takes it and starts from a focal scale of 1."""
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
+    if "refine_focal" in option:
+        eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
+        assert eng.refine_focal is True and eng.focal_scale == 1.0
+        return
     with pytest.raises(NotImplementedError):
         SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
 
@@ -219,13 +227,30 @@ def test_engine_chain_refresh_values(tmp_path):
     dict(feature_extractor=lambda im: None), dict(adaptive=False),
 ])
 def test_global_engine_options_off_the_window_path_raise(option, tmp_path):
-    """Every option of the JAX global engine off its window path raises
-    ``NotImplementedError`` in the port; none is ignored."""
+    """Every option of the JAX global engine that the port does not run
+    raises ``NotImplementedError``; none is ignored. The pair modes,
+    keyframing, streaming BA and focal self-calibration are ported: the
+    engine takes each and picks the JAX engine's path for it."""
     import dataclasses
 
     from sfmfromscratch_tpu_torch.config import PipelineConfig, RansacConfig
     from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
 
+    taken = {"pair_mode", "keyframe_step", "stream_ba_window", "refine_focal"}
+    if taken & set(option):
+        eng = GlobalSfmEngine(str(tmp_path), 5, device="cpu", auto_run=False, **option)
+        for name, value in option.items():
+            assert getattr(eng, name) == value
+        step = option.get("keyframe_step", 1)
+        assert eng.keyframed is (step != 1)
+        if step == 2:
+            assert eng.keyframes == [1, 3, 5] and eng._candidate_pairs(None) == [
+                (1, 3), (1, 5), (3, 5)]
+        if step == "auto":   # every image until the flow selection runs
+            assert eng.keyframes == [1, 2, 3, 4, 5] and eng._auto_kfs is None
+        if "stream_ba_window" in option:
+            assert eng.stream_ba_block_cams == 32 and eng.stream_stats is None
+        return
     if "adaptive" in option:
         option = dict(config=dataclasses.replace(PipelineConfig(),
                                                  ransac=RansacConfig(adaptive=False)))

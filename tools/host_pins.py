@@ -22,7 +22,12 @@ mean reprojection error before and after bundle adjustment (px), tracks,
 observations and observations per track. ``chip_smoke.py`` pins its host
 tolerances beside these numbers.
 
+With ``--package port`` the same runs go through the PyTorch port on the CPU
+(``device="cpu"``; its RANSAC draws come from a ``torch.Generator`` seeded
+with ``config.seed``), so the two packages' spreads can be set side by side.
+
     JAX_PLATFORMS=cpu python tools/host_pins.py [--seeds 0 1 2 3 4] [--runs cli distance recover]
+    python tools/host_pins.py --package port --runs recover
 """
 
 from __future__ import annotations
@@ -57,20 +62,36 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3, 4])
     ap.add_argument("--runs", nargs="+", default=["cli", "distance", "recover"])
+    ap.add_argument("--package", choices=["jax", "port"], default="jax")
     args = ap.parse_args()
 
-    import jax
+    if args.package == "jax":
+        import jax
 
-    jax.config.update("jax_platforms", "cpu")
-    from sfmfromscratch_tpu import cli
-    from sfmfromscratch_tpu.config import (
-        BundleAdjustConfig,
-        ExtractorConfig,
-        MatcherConfig,
-        PipelineConfig,
-        RansacConfig,
-    )
-    from sfmfromscratch_tpu.pipeline.incremental import SfmEngine
+        jax.config.update("jax_platforms", "cpu")
+        from sfmfromscratch_tpu import cli
+        from sfmfromscratch_tpu.config import (
+            BundleAdjustConfig,
+            ExtractorConfig,
+            MatcherConfig,
+            PipelineConfig,
+            RansacConfig,
+        )
+        from sfmfromscratch_tpu.pipeline.incremental import SfmEngine
+    else:
+        import functools
+
+        from sfmfromscratch_tpu_torch import cli
+        from sfmfromscratch_tpu_torch.config import (
+            BundleAdjustConfig,
+            ExtractorConfig,
+            MatcherConfig,
+            PipelineConfig,
+            RansacConfig,
+        )
+        from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+        SfmEngine = functools.partial(SfmEngine, device="cpu")
 
     bench = PipelineConfig(
         extractor=ExtractorConfig(**chip_smoke.BENCH_EXTRACTOR),
@@ -94,6 +115,8 @@ def main():
         if "cli" in args.runs:
             out = os.path.join(tmp, "cli_out")
             argv = chip_smoke.host_cli_argv(seq, os.path.join(tmp, "cli_cache"), out)
+            if args.package == "port":
+                argv += ["--device", "cpu"]
             for label in ("cli_main_cold", "cli_main_resume"):
                 t0 = time.perf_counter()
                 assert cli.main(argv) == 0
@@ -124,7 +147,7 @@ def main():
     for run in sorted({r["run"] for r in rows}):
         sel = [r for r in rows if r["run"] == run]
         summary[run] = {k: [min(r[k] for r in sel), max(r[k] for r in sel)] for k in _KEYS}
-    print(json.dumps({"seeds": args.seeds, "jax_cpu_range": summary}))
+    print(json.dumps({"seeds": args.seeds, f"{args.package}_cpu_range": summary}))
 
 
 if __name__ == "__main__":

@@ -15,11 +15,13 @@ The engine is ``SfmEngine`` on ``bench.py``'s 10-view sequence
 (``chip_smoke.bench_sequence``); with ``--engine host`` the same run with the
 host chain (``chain_mode="host"``: one synchronising fetch per frame) in
 place of the scan chain; with ``--engine global`` ``GlobalSfmEngine`` on the
-20-view 4 deg/view orbit of ``chip_smoke.py``'s global phase. Prints one JSON
-line per part as it is measured and, with ``--out``, appends it to that file
-(JSON lines).
+20-view 4 deg/view orbit of ``chip_smoke.py``'s global phase; with
+``--engine scale`` the scale phase's keyframes run (the 47-view 1.5 deg/view
+orbit, auto keyframes at ``chip_smoke.SCALE_FLOW_PX``, window 2, the CLI's
+default BA) with no pair cache. Prints one JSON line per part as it is
+measured and, with ``--out``, appends it to that file (JSON lines).
 
-    python3 tools/profile_engine.py [--engine host|global] [--runs 3] [--out profile_engine.json]
+    python3 tools/profile_engine.py [--engine host|global|scale] [--runs 3] [--out profile_engine.json]
 """
 
 from __future__ import annotations
@@ -41,7 +43,8 @@ from tools.profile_two_view import _busy_us  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--engine", choices=("incremental", "host", "global"), default="incremental")
+    ap.add_argument("--engine", choices=("incremental", "host", "global", "scale"),
+                    default="incremental")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write the parts to this JSON file")
     args = ap.parse_args()
@@ -62,16 +65,27 @@ def main() -> int:
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, timeout=60, check=True).stdout.strip()
     cfg = chip_smoke.engine_config()
+    kw = {"chain_mode": "host"} if args.engine == "host" else {}
     with tempfile.TemporaryDirectory(prefix="profile_engine_") as seq:
         if args.engine == "global":
             n = chip_smoke.GLOBAL_VIEWS
             K, _ = chip_smoke.orbit_sequence(seq, n, 4.0)
             engine = GlobalSfmEngine
+        elif args.engine == "scale":
+            import dataclasses
+
+            from sfmfromscratch_tpu_torch.config import BundleAdjustConfig
+
+            n = chip_smoke.SCALE_VIEWS
+            K, _ = chip_smoke.orbit_sequence(seq, n, chip_smoke.SCALE_STEP_DEG)
+            engine = GlobalSfmEngine
+            cfg = dataclasses.replace(cfg, ba=BundleAdjustConfig())   # the CLI's BA
+            kw = dict(pair_window=2, keyframe_step="auto",
+                      keyframe_flow_px=chip_smoke.SCALE_FLOW_PX)
         else:
             n = 10
             K, _ = chip_smoke.bench_sequence(seq)
             engine = SfmEngine
-        kw = {"chain_mode": "host"} if args.engine == "host" else {}
 
         def run():
             return engine(seq, n, config=cfg, single_K=K, device=dev, **kw)
@@ -110,7 +124,9 @@ def main() -> int:
                        for line in sampler.communicate()[0].splitlines() if line.strip()]
         emit({"part": "engine_warm_s", "runs": walls, "median": sorted(walls)[len(walls) // 2],
               "frames_per_s_median": n / sorted(walls)[len(walls) // 2]})
-        emit({"part": "stage_times_s", "runs": stages})
+        emit({"part": "stage_times_s", "runs": stages,
+              "filter_hyps_used_last_run": (None if eng.filter_hyps_used is None
+                                            else [int(h) for h in eng.filter_hyps_used])})
         emit({"part": "nvidia_smi_samples", "count": len(samples),
               "utilization_gpu_mean": (sum(r[0] for r in samples) / len(samples)
                                        if samples else None),
