@@ -30,8 +30,9 @@ Phases, each printing JSON lines:
              configuration, once cold and once warm; the launch counts are
              zeroed before the warm run and read after it. The result is held
              to pins beside the JAX engine's CPU spread
-             (``tools/engine_pins.py``), and the card's final BA problem is
-             solved again on the CPU.
+             (``tools/engine_pins.py``), the card's final BA problem is
+             solved again on the CPU, and the cold and warm runs must end
+             BA at the same error.
 5. global  — ``GlobalSfmEngine`` (window 3, 1,024 relative-pose hypotheses,
              2 BA rounds) on a 20-view 4 deg/view orbit at the bench widths,
              cold then warm, launches counted over the warm run; held to pins
@@ -59,8 +60,20 @@ Phases, each printing JSON lines:
              pins beside the JAX package's CPU spread
              (``tools/scale_pins.py``).
 
+9. extractors — the engines' other front ends and fixed-count RANSAC at the
+             bench widths: ``SfmEngine`` with the DoG front end, with the
+             TinyPoint hybrid, and with ``RansacConfig(adaptive=False,
+             pnp_solver="dlt")`` on the bench sequence; ``GlobalSfmEngine``
+             with fixed-count RANSAC on the global phase's orbit cut to 10
+             views; the full-width SuperPoint on the card against the CPU,
+             with the matcher kernel at D=256 on its descriptors; DLT PnP
+             card against CPU. Launches counted per run; held to pins beside
+             the JAX package's CPU spread (``tools/extractor_pins.py``).
+
 The line before last is ``{"kernels": [...]}``, with each kernel's launch
-counts on every path (engine, two-view, global, orbit, host, scale); the last is
+counts on every path (engine, two-view, global, orbit, host, scale, and per
+run of the extractors phase), the f32 matcher's row with its D=256 case
+(``superpoint_d256``); the last is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line. Without a CUDA card, or without the rest of the repository
 beside this file, it exits non-zero at once.
@@ -123,7 +136,11 @@ ENGINE_LAUNCHES = {"harris_response_fused": 3, "match_top2_fused": 1}
 # (PR 2) stopped after 19 iterations on the card and 27 on the CPU, with final
 # errors 1.3% apart (0.1188 and 0.1173 px). So the first BA_PREFIX iterations
 # must agree in cost to BA_PREFIX_RTOL, and the full runs' final errors to
-# BA_FINAL_RTOL.
+# BA_FINAL_RTOL. The card's segment sums add in a fixed order, so the card
+# lands on the same final error in every run, and the cold and warm runs must
+# agree exactly. With atomic adds the path was a draw: eight runs of one
+# problem ended anywhere in 0.1174-0.1190 px (tools/ba_repro.py), and one
+# run of this phase at 0.1243 px, 6% from the CPU.
 BA_PREFIX = 3
 BA_PREFIX_RTOL = 1e-3
 BA_FINAL_RTOL = 0.05
@@ -470,6 +487,56 @@ SELFCAL_CLI = ["--max-img", str(SELFCAL_VIEWS), "--focal", "400", "--scale-facto
                "--ransac-iterations", "384", "--refine-focal"]
 
 
+# The extractors phase: the engines' other front ends and fixed-count
+# RANSAC at the bench widths on the bench sequence, and the global engine's
+# fixed-count relative poses on the global phase's orbit cut to 10 views (its
+# 24 window pairs x 5,967 fixed-count F-RANSAC hypotheses; 20 views would
+# take 51 pairs).
+EXTRACTOR_VIEWS = 10
+HYBRID_K = 2500
+FIXED_RANSAC = dict(adaptive=False, pnp_solver="dlt")
+GLOBAL_FIXED_VIEWS = 10
+SUPERPOINT_K = 2500
+EXTRACTOR_LAUNCHES = {
+    "dog": {"harris_response_fused": 0, "match_top2_fused": 1},
+    "hybrid": {"harris_response_fused": 0, "match_top2_fused": 1},
+    "fixed": {"harris_response_fused": 3, "match_top2_fused": 1},
+    "global_fixed": {"harris_response_fused": 3, "match_top2_fused": 1},
+}
+# JAX on the CPU (tools/extractor_pins.py, every camera in every run): ATE
+# over extent, post-BA reprojection error, tracks
+#   dog,    seeds 0-29: 0.0068-0.088,   0.132-0.249 px, 2014-2516
+#   hybrid, seeds 0-29: 0.0075-0.135,   0.111-0.261 px,  919-1102
+#   fixed,  seeds 0-14: 0.0039-0.050,   0.112-0.184 px, 2826-3368
+#   global_fixed, 0-14: 0.0011-0.0018,  0.217-0.230 px, 1695-1757
+# Seeds 0-4 alone missed the tail of the adaptive bootstrap's translation
+# direction on the short first baseline (the port on the CPU reached 0.136
+# and the card 0.078 where JAX's seeds 0-4 stopped at 0.039 and 0.036; JAX
+# reaches 0.088 and 0.135 at seeds 22 and 18; tools/bootstrap_spread.py
+# shows both packages draw from one distribution), so those runs are pinned
+# over more seeds. The incremental runs take the engine phase's margins
+# (1.6x the worst ATE and error, two thirds of the fewest tracks), the
+# global run the global phase's (5x, 1.25x, 85%).
+PIN_EXTRACTORS = {
+    "dog": dict(ate_over_extent=0.141, reproj_px=0.40, min_tracks=1343),
+    "hybrid": dict(ate_over_extent=0.217, reproj_px=0.42, min_tracks=613),
+    "fixed": dict(ate_over_extent=0.081, reproj_px=0.294, min_tracks=1884),
+    "global_fixed": dict(ate_over_extent=0.0089, reproj_px=0.287, min_tracks=1440),
+}
+# Full SuperPoint on the card against the CPU (TF32 off on both): the
+# heatmaps agree to float32 rounding, so keypoint sets part only where two
+# scores within that rounding straddle the top-k cut or an NMS window, and
+# shared keypoints' descriptors agree to rounding.
+SP_KP_JACCARD = 0.97
+SP_DESC_COSINE = 0.999
+# DLT PnP on the card against the CPU on the same 5,967 samples: eigh on the
+# card and in LAPACK round differently, so a hypothesis at the 8 px gate may
+# gain or lose a point and the winner may change; the polished poses agree.
+DLT_INLIER_GAP = 3
+DLT_CARD_CPU_ROT_DEG = 0.05
+DLT_ROT_ERR_DEG = 0.5
+
+
 def scale_cli_argv(seq: str, cache: str, *extra):
     """The scale phase's global ``reconstruct`` command line (both packages'
     CLIs take it)."""
@@ -721,6 +788,44 @@ def _match_tie_case(dev, MK, kw):
     return row
 
 
+def _match_row(label, MK, d1, d2, mask2, bf16, peaks):
+    """The matcher kernel against its plain version (``_match_check``) on
+    (B, n1, D) queries and a masked (B, n2, D) database, with its device,
+    graph and call times, the plain version's and one library call's, and
+    its bound."""
+    import torch
+
+    from sfmfromscratch_tpu_torch.utils.precision import f32_precision
+
+    kw = {"bf16": True} if bf16 else {}
+    fl = peaks["bf16_flops"] if bf16 else peaks["fp32_flops"]
+    B, n1, D = d1.shape
+    n2 = d2.shape[1]
+    row, _, n2sq = _match_check(label, MK, d1, d2, mask2, kw)
+    flops = 2.0 * B * n1 * n2 * D
+    nbytes = 4.0 * (B * n1 * D + B * n2 * D + B * n2) + 12.0 * B * n1
+
+    if bf16:
+        def library():
+            # The product is rounded to bf16 here, unlike the kernel's f32 sum.
+            cross = torch.bmm(d1.bfloat16(), d2.bfloat16().transpose(1, 2))
+            return (n2sq[:, None, :] - 2.0 * cross).topk(2, dim=-1, largest=False)
+    else:
+        def library():
+            with f32_precision():
+                return torch.cdist(d1, d2).topk(2, dim=-1, largest=False)
+
+    row["shape"] = [B, n1, n2, D]
+    row.update(_kernel_times(lambda: MK.match_top2_fused(d1, d2, mask2, **kw),
+                             lambda: MK._launch(d1, d2, n2sq, **kw),
+                             ("match_bf16_kernel" if bf16 else "match_f32_kernel",
+                              "merge_segments_kernel")))
+    row.update(plain_ms=_cuda_ms(lambda: MK.match_top2_plain(d1, d2, n2sq, **kw), reps=5),
+               library_ms=_cuda_ms(library, reps=5),
+               bound_ms=max(nbytes / peaks["bytes_per_s"], flops / fl) * 1e3)
+    return row
+
+
 def match_phase(dev, peaks):
     """Matcher kernel vs plain, f32 and bf16 modes, at the engine's shape (9
     pairs), the two-view's (one pair), a 6000-row database and an exact-tie
@@ -728,14 +833,10 @@ def match_phase(dev, peaks):
     import torch
 
     from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
-    from sfmfromscratch_tpu_torch.utils.precision import f32_precision
 
-    bw = peaks["bytes_per_s"]
-    D = 128
     kernels = []
     for bf16 in MATCH_MODES:
         kw = {"bf16": True} if bf16 else {}
-        fl = peaks["bf16_flops"] if bf16 else peaks["fp32_flops"]
         gen = torch.Generator(device=dev).manual_seed(1)
         rows = []
         for B, n1, n2 in MATCH_CASES:
@@ -743,29 +844,7 @@ def match_phase(dev, peaks):
             d2 = _descriptors(gen, dev, B, n2)
             mask2 = torch.rand((B, n2), generator=gen, device=dev) > 0.1
             label = f"match {'bf16' if bf16 else 'f32'} {B}x{n1}x{n2}"
-            row, _, n2sq = _match_check(label, MK, d1, d2, mask2, kw)
-            flops = 2.0 * B * n1 * n2 * D
-            nbytes = 4.0 * (B * n1 * D + B * n2 * D + B * n2) + 12.0 * B * n1
-
-            if bf16:
-                def library():
-                    # The product is rounded to bf16 here, unlike the kernel's f32 sum.
-                    cross = torch.bmm(d1.bfloat16(), d2.bfloat16().transpose(1, 2))
-                    return (n2sq[:, None, :] - 2.0 * cross).topk(2, dim=-1, largest=False)
-            else:
-                def library():
-                    with f32_precision():
-                        return torch.cdist(d1, d2).topk(2, dim=-1, largest=False)
-
-            row["shape"] = [B, n1, n2, D]
-            row.update(_kernel_times(lambda: MK.match_top2_fused(d1, d2, mask2, **kw),
-                                     lambda: MK._launch(d1, d2, n2sq, **kw),
-                                     ("match_bf16_kernel" if bf16 else "match_f32_kernel",
-                                      "merge_segments_kernel")))
-            row.update(plain_ms=_cuda_ms(lambda: MK.match_top2_plain(d1, d2, n2sq, **kw), reps=5),
-                       library_ms=_cuda_ms(library, reps=5),
-                       bound_ms=max(nbytes / bw, flops / fl) * 1e3)
-            rows.append(row)
+            rows.append(_match_row(label, MK, d1, d2, mask2, bf16, peaks))
         tie = _match_tie_case(dev, MK, kw)
         edges = []
         for B, n1, n2, D_ in MATCH_EDGE_CASES:
@@ -961,8 +1040,9 @@ def engine_phase(dev):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_seq_") as seq:
         K, gt = bench_sequence(seq, n)
         t0 = time.perf_counter()
-        SfmEngine(seq, n, config=cfg, single_K=K, device=dev)
+        cold = SfmEngine(seq, n, config=cfg, single_K=K, device=dev)
         cold_s = time.perf_counter() - t0
+        cold_e1 = float(cold.errors_before_after_ba[1])
 
         HK.launches = 0
         MK.launches = 0
@@ -1001,6 +1081,7 @@ def engine_phase(dev):
             "launches": launches, "launches_bf16_matcher": launches_bf16, "cameras": cams,
             "ate": ate, "extent": extent,
             "ate_over_extent": ate / extent, "reproj_before_px": e0, "reproj_after_px": e1,
+            "cold_reproj_after_px": cold_e1,
             "tracks": tracks, "observations": eng.map.num_observations,
             "filter_hyps_used": np.asarray(eng.filter_hyps_used).tolist(),
             "ba_iterations": ba_iters, "ba_problem_padded": [eng.ba_problem.num_cameras,
@@ -1024,6 +1105,7 @@ def engine_phase(dev):
     for k, card, cpu, rel in prefix[:BA_PREFIX]:
         _check(rel <= BA_PREFIX_RTOL, f"BA cost after {k} iterations: card {card} vs CPU {cpu}")
     _check(abs(cpu_e1 - e1) <= BA_FINAL_RTOL * e1, f"BA final error card {e1} vs CPU {cpu_e1}")
+    _check(cold_e1 == e1, f"BA final error not reproducible on the card: cold {cold_e1}, warm {e1}")
     return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16})
 
 
@@ -1389,11 +1471,12 @@ def host_phase(dev):
     return runs["cli_cold"]["launches"]
 
 
-def _global_row(eng, gt, wall_s, launches):
-    """One global-engine run's numbers (cameras from image 1)."""
+def _global_row(eng, gt, wall_s, launches, first_image=1):
+    """One engine run's numbers (the global engine's cameras start at image
+    1, the incremental engine's at image 2)."""
     import numpy as np
 
-    ate, extent = trajectory_error(eng.global_poses, gt, first_image=1)
+    ate, extent = trajectory_error(eng.global_poses, gt, first_image=first_image)
     e0, e1 = eng.errors_before_after_ba
     return dict(wall_s=wall_s, launches=launches, cameras=len(eng.global_poses),
                 ate_over_extent=ate / extent, reproj_before_px=float(e0),
@@ -1579,6 +1662,221 @@ def scale_phase(dev):
     return kf["launches"]
 
 
+def _superpoint_compare(card, cpu):
+    """Keypoint Jaccard (masked (x, y) sets) and descriptor cosines on the
+    shared keypoints of one image's card and CPU SuperPoint Features."""
+    import numpy as np
+
+    def kp(f):
+        m = f.keypoints.mask.cpu().numpy()
+        xy = np.stack([f.keypoints.x.cpu().numpy(), f.keypoints.y.cpu().numpy()], 1)
+        return {tuple(p): r for r, p in enumerate(xy.tolist()) if m[r]}
+
+    a, b = kp(card), kp(cpu)
+    shared = sorted(set(a) & set(b))
+    da = card.descriptors.cpu().numpy()[[a[p] for p in shared]]
+    db = cpu.descriptors.cpu().numpy()[[b[p] for p in shared]]
+    cos = (da * db).sum(-1) / np.maximum(
+        np.linalg.norm(da, axis=-1) * np.linalg.norm(db, axis=-1), 1e-12)
+    return len(shared) / max(len(set(a) | set(b)), 1), cos, len(a)
+
+
+def _dlt_problem(rng, n: int = 2000, outliers: float = 0.3):
+    """A seeded 2D-3D problem at the bench's intrinsics: world points 4-8
+    units in front of a camera turned 3 deg and moved 0.3, pixels with
+    0.5 px noise, a share of outliers anywhere in the 360x480 frame, and the
+    last 50 points masked out. Returns numpy (X, x, K, mask, R, t) and the
+    mask of the valid points that are not outliers."""
+    import numpy as np
+
+    K = np.array([[520.0, 0, 240.0], [0, 520.0, 180.0], [0, 0, 1]], np.float32)
+    X = np.stack([rng.uniform(-3, 3, n), rng.uniform(-2, 2, n), rng.uniform(4, 8, n)], 1)
+    a = np.radians(3.0)
+    R = np.array([[np.cos(a), 0, np.sin(a)], [0, 1, 0], [-np.sin(a), 0, np.cos(a)]])
+    t = np.array([0.3, -0.05, 0.1])
+    c = X @ R.T + t
+    x = c[:, :2] / c[:, 2:] * 520.0 + [240.0, 180.0] + rng.normal(0, 0.5, (n, 2))
+    out = rng.choice(n, int(outliers * n), replace=False)
+    x[out] = rng.uniform([0, 0], [480, 360], (len(out), 2))
+    mask = np.ones(n, bool)
+    mask[-50:] = False
+    clean = mask.copy()
+    clean[out] = False
+    return (X.astype(np.float32), x.astype(np.float32), K, mask, R, t), clean
+
+
+def _rot_gap_deg(Ra, Rb) -> float:
+    """Angle between two rotations from their Frobenius distance: exact at
+    float32 noise, where arccos of the trace is not."""
+    import numpy as np
+
+    d = np.linalg.norm(np.asarray(Ra, np.float64) - np.asarray(Rb, np.float64))
+    return float(np.degrees(2.0 * np.arcsin(min(d / (2.0 * np.sqrt(2.0)), 1.0))))
+
+
+def extractors_phase(dev, peaks):
+    """The engines' other front ends and fixed-count RANSAC at the bench
+    widths, each run's launches counted:
+
+    1. dog: ``SfmEngine(feature_extractor=make_dog_extractor(...))`` on the
+       bench sequence;
+    2. hybrid: ``make_hybrid_extractor(k=HYBRID_K)`` (TinyPoint) there;
+    3. fixed: ``SfmEngine`` with ``RansacConfig(**FIXED_RANSAC)`` there
+       (fixed-count filter and bootstrap of 5,967 hypotheses, P3P at 5,967);
+    4. global_fixed: ``GlobalSfmEngine`` with the same RANSAC settings on
+       the global phase's orbit cut to ``GLOBAL_FIXED_VIEWS`` views;
+    5. superpoint: the full-width ``SuperPointNet`` (random initialisation
+       from seed 0) on the bench images on the card and on the CPU, and the
+       matcher kernel at D=256 on its consecutive-pair descriptors;
+    6. dlt: ``pnp_ransac(solver="dlt")`` on ``_dlt_problem`` and ``pnp()``
+       on its outlier-free points, card against CPU on the same uniforms.
+
+    Returns (launches per run, the D=256 matcher row)."""
+    import dataclasses
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch.config import RansacConfig
+    from sfmfromscratch_tpu_torch.geometry.pnp import pnp, pnp_ransac
+    from sfmfromscratch_tpu_torch.io.images import load_image
+    from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+    from sfmfromscratch_tpu_torch.ops.superpoint import SuperPointExtractor, make_hybrid_extractor
+    from sfmfromscratch_tpu_torch.pipeline.frontend import make_dog_extractor, preprocess_image
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    cfg = engine_config()
+    fixed = dataclasses.replace(cfg, ransac=RansacConfig(**FIXED_RANSAC))
+    n = EXTRACTOR_VIEWS
+
+    def timed(fn):
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, _launch_counts()
+
+    runs, extra = {}, {}
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_extractors_") as tmp:
+        seq = os.path.join(tmp, "bench")
+        os.makedirs(seq)
+        K, gt = bench_sequence(seq, n)
+        engines = {
+            "dog": lambda: SfmEngine(seq, n, config=cfg, single_K=K, device=dev,
+                                     feature_extractor=make_dog_extractor(cfg.extractor)),
+            "hybrid": lambda: SfmEngine(seq, n, config=cfg, single_K=K, device=dev,
+                                        feature_extractor=make_hybrid_extractor(k=HYBRID_K)),
+            "fixed": lambda: SfmEngine(seq, n, config=fixed, single_K=K, device=dev),
+        }
+        for label, make in engines.items():
+            eng, wall, launches = timed(make)
+            runs[label] = _global_row(eng, gt, wall, launches, first_image=2)
+            runs[label]["filter_hyps_used"] = np.asarray(eng.filter_hyps_used).tolist()
+            runs[label]["pnp_hypotheses"] = int(eng._pnp_hyp)
+
+        orbit = os.path.join(tmp, "orbit")
+        os.makedirs(orbit)
+        Ko, gto = orbit_sequence(orbit, GLOBAL_FIXED_VIEWS, 4.0)
+        eng, wall, launches = timed(lambda: GlobalSfmEngine(orbit, GLOBAL_FIXED_VIEWS, config=fixed,
+                                                            single_K=Ko, device=dev))
+        runs["global_fixed"] = _global_row(eng, gto, wall, launches)
+        runs["global_fixed"].update(
+            edges=len(eng._edges), filter_hyps_used=np.asarray(eng.filter_hyps_used).tolist(),
+            camera0_identity=bool(np.allclose(np.hstack(eng.global_poses[0]), 0.0, atol=1e-5)))
+
+        # Full-width SuperPoint, card against CPU on the same images.
+        imgs = [preprocess_image(load_image(os.path.join(seq, f"{i}.jpg")), 1.0, dev)
+                for i in range(1, n + 1)]
+        sp_card, sp_cpu = SuperPointExtractor(None, seed=0), SuperPointExtractor(None, seed=0)
+        sp_card(imgs[0], k=SUPERPOINT_K)   # moves the net, first cuDNN plans
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        f_card = [sp_card(im, k=SUPERPOINT_K) for im in imgs]
+        torch.cuda.synchronize()
+        card_ms = (time.perf_counter() - t0) * 1e3 / n
+        t0 = time.perf_counter()
+        f_cpu = [sp_cpu(im.cpu(), k=SUPERPOINT_K) for im in imgs]
+        cpu_ms = (time.perf_counter() - t0) * 1e3 / n
+        cmp = [_superpoint_compare(a, b) for a, b in zip(f_card, f_cpu)]
+        cos = np.concatenate([c[1] for c in cmp])
+        d1 = torch.stack([f.descriptors for f in f_card[:-1]])
+        d2 = torch.stack([f.descriptors for f in f_card[1:]])
+        mask2 = torch.stack([f.keypoints.mask for f in f_card[1:]])
+        d256 = _match_row(f"match f32 superpoint {tuple(d1.shape)}", MK, d1, d2, mask2, False, peaks)
+        extra["superpoint"] = dict(
+            k=SUPERPOINT_K, descriptor_dim=int(d1.shape[-1]), card_ms_per_image=card_ms,
+            cpu_ms_per_image=cpu_ms, keypoints=[c[2] for c in cmp],
+            keypoint_jaccard=[c[0] for c in cmp], desc_cosine_min=float(cos.min()),
+            desc_cosine_mean=float(cos.mean()), shared_keypoints=int(len(cos)))
+
+        # DLT PnP, card against CPU on the same uniforms.
+        (X, x, Kd, m, R_gt, t_gt), clean = _dlt_problem(np.random.default_rng(11))
+        u = torch.rand((RansacConfig().num_iterations(), 6),
+                       generator=torch.Generator().manual_seed(3))
+        dlt = {}
+        for name, d in (("card", dev), ("cpu", torch.device("cpu"))):
+            args = [torch.as_tensor(a, device=d) for a in (X, x, Kd)]
+            ransac = lambda: pnp_ransac(None, *args, torch.as_tensor(m, device=d),
+                                        num_hypotheses=u.shape[0], solver="dlt", uniforms=u)
+            plain = lambda: pnp(*args, torch.as_tensor(clean, device=d))
+            (r, wall_r, _), (q, wall_q, _) = timed(ransac), timed(plain)
+            dlt[name] = dict(ransac_s=wall_r, pnp_s=wall_q, ransac=r, pnp=q)
+        rows = {}
+        for which in ("ransac", "pnp"):
+            a, b = dlt["card"][which], dlt["cpu"][which]
+            Ra, Rb = (v.R.cpu().numpy().astype(np.float64) for v in (a, b))
+            ta, tb = (v.t.cpu().numpy().astype(np.float64) for v in (a, b))
+            rows[which] = dict(
+                ok=[bool(a.ok), bool(b.ok)], inliers=[int(a.num_inliers), int(b.num_inliers)],
+                card_vs_cpu_rot_deg=_rot_gap_deg(Ra, Rb),
+                card_vs_cpu_t=float(np.linalg.norm(ta - tb)),
+                rot_err_deg=_rot_gap_deg(Ra, R_gt),
+                t_err=float(np.linalg.norm(ta - t_gt)),
+                card_s=dlt["card"][f"{which}_s"], cpu_s=dlt["cpu"][f"{which}_s"])
+        extra["dlt"] = dict(rows, hypotheses=int(u.shape[0]), points=int(len(X)),
+                            outlier_free=int(clean.sum()))
+    extra["phase_s"] = time.perf_counter() - t_phase
+
+    want = {k: dict(v, **{"match_top2_fused(bf16=True)": 0}) for k, v in EXTRACTOR_LAUNCHES.items()}
+    _print({"phase": "extractors", "runs": runs, **extra, "match_d256": d256,
+            "pins": PIN_EXTRACTORS, "launches": want})
+    for label, w in want.items():
+        _check(runs[label]["launches"] == w,
+               f"extractors {label} launches {runs[label]['launches']} != {w}")
+    for label in ("dog", "hybrid", "fixed"):
+        _check(runs[label]["cameras"] == n - 1, f"extractors {label}: {runs[label]['cameras']} cameras")
+    fx = runs["fixed"]
+    _check(fx["pnp_hypotheses"] == 5967, f"fixed: PnP at {fx['pnp_hypotheses']} hypotheses")
+    _check(fx["filter_hyps_used"] == [5967] * (n - 2), f"fixed: filter {fx['filter_hyps_used']}")
+    gf = runs["global_fixed"]
+    _check(gf["cameras"] == GLOBAL_FIXED_VIEWS, f"global_fixed: {gf['cameras']} cameras")
+    _check(gf["camera0_identity"], "global_fixed: camera 0 is not the identity")
+    _check(set(gf["filter_hyps_used"]) == {5967}, f"global_fixed: filter {gf['filter_hyps_used']}")
+    for label in want:
+        _check_pins(f"extractors {label}", runs[label], PIN_EXTRACTORS[label])
+    sp = extra["superpoint"]
+    _check(sp["descriptor_dim"] == 256, f"superpoint: D={sp['descriptor_dim']}")
+    _check(min(sp["keypoint_jaccard"]) >= SP_KP_JACCARD,
+           f"superpoint: keypoint Jaccard {sp['keypoint_jaccard']} < {SP_KP_JACCARD}")
+    _check(sp["desc_cosine_min"] >= SP_DESC_COSINE,
+           f"superpoint: descriptor cosine {sp['desc_cosine_min']} < {SP_DESC_COSINE}")
+    for which, r in extra["dlt"].items():
+        if not isinstance(r, dict):
+            continue
+        _check(all(r["ok"]), f"dlt {which}: ok {r['ok']}")
+        _check(abs(r["inliers"][0] - r["inliers"][1]) <= DLT_INLIER_GAP,
+               f"dlt {which}: inliers card {r['inliers'][0]} vs CPU {r['inliers'][1]}")
+        _check(r["card_vs_cpu_rot_deg"] <= DLT_CARD_CPU_ROT_DEG,
+               f"dlt {which}: card vs CPU rotation {r['card_vs_cpu_rot_deg']} deg")
+        _check(r["rot_err_deg"] <= DLT_ROT_ERR_DEG, f"dlt {which}: rotation error {r['rot_err_deg']} deg")
+    launches = {name: {label: r["launches"][name] for label, r in runs.items()}
+                for name in runs["dog"]["launches"]}
+    return launches, d256
+
+
 def main(argv) -> int:
     only_kernels = "--only-kernels" in argv
     try:
@@ -1622,6 +1920,8 @@ def main(argv) -> int:
         orbit = orbit_phase(dev)
         host = host_phase(dev)
         scale = scale_phase(dev)
+        extractors, d256 = extractors_phase(dev, peaks)
+        kernels[1]["superpoint_d256"] = d256
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
             k["launches_two_view"] = two_view.get(k["name"], 0)
@@ -1629,6 +1929,7 @@ def main(argv) -> int:
             k["launches_orbit"] = orbit.get(k["name"], 0)
             k["launches_host"] = host.get(k["name"], 0)
             k["launches_scale"] = scale.get(k["name"], 0)
+            k["launches_extractors"] = extractors.get(k["name"], {})
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -10,9 +10,12 @@ with U block-diagonal over cameras (6x6), V block-diagonal over points (3x3)
 and W one 6x3 block per observation. Eliminating the points gives the
 reduced camera system S dc = b, S = U - W V^-1 W', b = gc - W V^-1 gp.
 
-Segment sums are ``index_add_``. Two backends: the exact dense Cholesky of S
-for small camera counts (``dense_gate``), and matrix-free block-Jacobi PCG
-otherwise. The JAX package's ``reduce_fn`` (a ``psum`` for its sharded
+Segment sums are ``index_add_`` on the CPU and the sort-based
+``index_put_(accumulate=True)`` on the card: ``index_add_`` on the card adds
+with atomics in whatever order the threads land, so the same problem took
+another LM path, to another final error, from run to run. Two backends: the
+exact dense Cholesky of S for small camera counts (``dense_gate``), and
+matrix-free block-Jacobi PCG otherwise. The JAX package's ``reduce_fn`` (a ``psum`` for its sharded
 solver) has no counterpart here: the port runs on one device.
 """
 
@@ -37,8 +40,11 @@ class SchurOperands(NamedTuple):
 
 
 def segment_sum(x: torch.Tensor, idx: torch.Tensor, num_segments: int) -> torch.Tensor:
-    """``jax.ops.segment_sum`` for in-range indices."""
+    """``jax.ops.segment_sum`` for in-range indices, deterministic on every
+    device (each segment adds its rows in index order)."""
     out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
+    if x.is_cuda:
+        return out.index_put_((idx,), x, accumulate=True)
     return out.index_add_(0, idx, x)
 
 

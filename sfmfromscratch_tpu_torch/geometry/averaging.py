@@ -8,9 +8,10 @@ carries ``R_ij = R_j R_i^T`` and the translation direction
 The solvers take padded edge lists (weight-0 edges are inert) and keep the
 JAX package's arithmetic: robust weights are normalised by their mean over
 the whole, padded, list, so a caller that pads as the JAX engine does gets
-its numbers. Segment sums are ``index_add_`` (``ba/schur.py::segment_sum``);
-on CUDA they sum in any order, so card and CPU agree to rounding. The JAX
-``lax.scan`` sweeps become Python loops with no host read; the chordal
+its numbers. Segment sums are ``ba/schur.py::segment_sum``, deterministic
+on the card but in another order than on the CPU, so card and CPU agree to
+rounding. The JAX ``lax.scan`` sweeps become Python loops with no host
+read; the chordal
 initialisation's conjugate gradients read the residual on the host before
 each step, as the JAX ``while_loop`` tests it.
 """

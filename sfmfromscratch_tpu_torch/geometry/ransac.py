@@ -148,6 +148,40 @@ def ransac_essential_pose(
                             (min_cheirality_frac * n_valid_s).to(torch.int64))
 
 
+@mm_f32
+def ransac_essential_pose_batch(
+    generator: Optional[torch.Generator],
+    p1: torch.Tensor,           # (P, N, 2)
+    p2: torch.Tensor,           # (P, N, 2)
+    K1: torch.Tensor,           # (P, 3, 3)
+    K2: torch.Tensor,           # (P, 3, 3)
+    mask: torch.Tensor,         # (P, N) bool
+    num_hypotheses: int = 1024,
+    threshold: float = 1.0,
+    sample_size: int = 8,
+    min_cheirality_frac: float = 0.75,
+    cheirality_subset: int = 512,
+    uniforms: Optional[torch.Tensor] = None,
+) -> RansacPoseResult:
+    """:func:`ransac_essential_pose` over a leading pair axis
+    (ransac.py:633-663, a ``vmap`` there and here): the fixed-count relative
+    poses of P pairs, each with its own intrinsics, as one batch. Every
+    result field gains a leading P dimension. ``uniforms`` (P, B, s)
+    replaces the draws from ``generator``: pair b uses ``uniforms[b]``."""
+    P = p1.shape[0]
+    if uniforms is None:
+        uniforms = torch.rand((P, num_hypotheses, sample_size), generator=generator,
+                              device=p1.device, dtype=torch.float32)
+
+    def one(u, a, b, ka, kb, m):
+        return tuple(ransac_essential_pose(
+            None, a, b, ka, kb, m, num_hypotheses=num_hypotheses, threshold=threshold,
+            sample_size=sample_size, min_cheirality_frac=min_cheirality_frac,
+            cheirality_subset=cheirality_subset, uniforms=u))
+
+    return RansacPoseResult(*torch.func.vmap(one)(uniforms.to(p1.device), p1, p2, K1, K2, mask))
+
+
 def _lo_refit(F_b, inl_b, msac_b, p1, p2, mask, threshold: float, rounds: int):
     """Locally-optimized refit: re-solve F from the winner's full inlier set
     (masked n-point), keep it when the MSAC score improves; ``rounds``

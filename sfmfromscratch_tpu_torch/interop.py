@@ -1,8 +1,8 @@
 """State that crosses between the JAX package and the port.
 
-The engine has no learned weights; what crosses is configuration and
-intermediate state: features, matches, pair geometry, bundle-adjustment
-problems, and an engine's map and poses. Nothing here imports JAX: the JAX
+What crosses is configuration, intermediate state (features, matches,
+pair geometry, bundle-adjustment problems, an engine's map and poses) and
+the SuperPoint net's weights. Nothing here imports JAX: the JAX
 side's configs arrive as ``dataclasses.asdict(...)`` dicts and its arrays
 as anything ``np.asarray`` accepts.
 """
@@ -139,6 +139,17 @@ def import_global_state(engine, source) -> None:
         if getattr(source, name, None) is not None:
             v = getattr(source, name)
             setattr(engine, name, list(v) if name == "_edges" else _copy_host(v))
+
+
+def superpoint_params_from_flax(variables) -> dict:
+    """A JAX ``SuperPointNet``'s flax variables (``{"params": {layer:
+    {"kernel", "bias"}}}``, any array type) -> the port ``SuperPointNet``'s
+    state dict, for ``load_state_dict``."""
+    from sfmfromscratch_tpu_torch.ops.superpoint import state_dict_from_flax
+
+    params = {layer: {k: np.asarray(v) for k, v in p.items()}
+              for layer, p in variables["params"].items()}
+    return state_dict_from_flax(params)
 
 
 def to_numpy(nt: NamedTuple):

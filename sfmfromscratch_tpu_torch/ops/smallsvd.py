@@ -4,7 +4,9 @@
 The solvers stay where the JAX package put them: complete QR for the
 underdetermined 8x9 RANSAC minimal systems, QR then SVD for square and
 overdetermined systems (the DLT null vector), SVD for the 3x3 rank-2
-projection and the essential-matrix decomposition. The 3x3 closed forms
+projection and the essential-matrix decomposition, and ``eigh`` of the
+normal matrix where the JAX package takes it (the DLT PnP hypotheses, whose
+Hartley-normalised systems are benign). The 3x3 closed forms
 (``inv3``, ``chol3``, ``solve3_spd``, ``inv3_spd``) serve P3P and the point
 blocks of bundle adjustment.
 """
@@ -31,6 +33,26 @@ def nullvec_lstsq(A: torch.Tensor) -> torch.Tensor:
     bad = ~torch.isfinite(A).all(dim=-1).all(dim=-1)
     _, _, Vh = torch.linalg.svd(torch.where(bad[..., None, None], 0.0, A), full_matrices=False)
     v = Vh[..., -1, :]
+    v = v / torch.linalg.norm(v, dim=-1, keepdim=True)
+    return torch.where(bad[..., None], float("nan"), v)
+
+
+def smallest_eigvec_sym(S: torch.Tensor) -> torch.Tensor:
+    """Eigenvector of the smallest eigenvalue of a symmetric (..., n, n)
+    matrix (``eigh`` returns ascending eigenvalues). Defined up to sign."""
+    _, vecs = torch.linalg.eigh(S)
+    return vecs[..., :, 0]
+
+
+def nullvec_normal_eq(A: torch.Tensor) -> torch.Tensor:
+    """Unit null vector of (..., m, n) A through ``eigh(A^T A)``: cheaper
+    than :func:`nullvec_lstsq` and less accurate (the normal matrix squares
+    the condition number), so only where conditioning is benign. A system
+    with a non-finite entry gives NaN, as XLA's ``eigh`` does, where
+    ``torch.linalg.eigh`` may raise."""
+    AtA = torch.einsum("...mi,...mj->...ij", A, A)
+    bad = ~torch.isfinite(AtA).all(dim=-1).all(dim=-1)
+    v = smallest_eigvec_sym(torch.where(bad[..., None, None], 0.0, AtA))
     v = v / torch.linalg.norm(v, dim=-1, keepdim=True)
     return torch.where(bad[..., None], float("nan"), v)
 

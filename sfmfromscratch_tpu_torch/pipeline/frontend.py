@@ -4,6 +4,8 @@ plus the two-image ``FeatureRunner`` (counterpart of
 
 Harris responses go through the Harris kernel's wrapper and the matcher core
 through the matcher kernel's wrapper, so on the card both CUDA kernels run.
+``make_dog_extractor`` is the DoG front end for the engines'
+``feature_extractor`` slot.
 """
 
 from __future__ import annotations
@@ -78,6 +80,22 @@ def extract_features(image_bw: torch.Tensor, cfg: ExtractorConfig) -> Features:
         mask=torch.cat(masks, -1), xf=torch.cat(xfs, -1), yf=torch.cat(yfs, -1),
     )
     return Features(keypoints=kps, descriptors=torch.cat(descs, -2))
+
+
+def make_dog_extractor(cfg: ExtractorConfig):
+    """DoG front end for the engines' ``feature_extractor`` slot
+    (``frontend.py:93-111``): ``detect_dog_keypoints`` at
+    ``num_interest_points`` plus rotation-invariant RootSIFT at a feature
+    width of at least 16. Returns a callable (H, W) image -> Features."""
+    from sfmfromscratch_tpu_torch.ops.dog import detect_dog_keypoints
+
+    def extract(image_bw: torch.Tensor) -> Features:
+        kps = detect_dog_keypoints(image_bw, k=cfg.num_interest_points)
+        desc = sift_descriptors(image_bw, kps.x, kps.y, kps.mask,
+                                feature_width=max(cfg.feature_width, 16), rotation_invariant=True)
+        return Features(keypoints=kps, descriptors=desc)
+
+    return extract
 
 
 def extract_features_batch(images_bw: torch.Tensor, cfg: ExtractorConfig) -> Features:

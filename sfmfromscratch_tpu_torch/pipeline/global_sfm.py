@@ -1,6 +1,6 @@
 """Global Structure-from-Motion engine: motion averaging instead of a chain
 (counterpart of ``sfmfromscratch_tpu/pipeline/global_sfm.py``, without a
-mesh and with adaptive RANSAC).
+mesh).
 
 Stages, each batched over the whole sequence:
 
@@ -8,10 +8,11 @@ Stages, each batched over the whole sequence:
    ``keyframe_step="auto"``, keyframes chosen by the median flow of every
    consecutive pair (one matcher launch);
 2. matching of the candidate pairs (one matcher launch for all of them) and
-   the adaptive F-RANSAC filter on every pair. Candidates are window pairs
+   the F-RANSAC filter on every pair. Candidates are window pairs
    over the keyframes (every image unless ``keyframe_step`` > 1), VLAD
    retrieval proposals (``pair_mode="retrieval"``), or both;
-3. relative poses of every pair by batched adaptive essential RANSAC, then
+3. relative poses of every pair by batched essential RANSAC (adaptive, or
+   fixed-count with ``RansacConfig(adaptive=False)``), then
    Sampson refinement of every edge, and the planar-degeneracy fix;
 4. the cycle filter and connectivity repair, chordal + IRLS rotation
    averaging, translation directions refit under the averaged rotations,
@@ -63,6 +64,7 @@ from sfmfromscratch_tpu_torch.geometry.homography import (
 from sfmfromscratch_tpu_torch.geometry.pnp import pnp_ransac
 from sfmfromscratch_tpu_torch.geometry.ransac import (
     ransac_essential_pose_adaptive_batch,
+    ransac_essential_pose_batch,
     ransac_fundamental_adaptive_batch,
 )
 from sfmfromscratch_tpu_torch.geometry.triangulation import triangulate_multiview, two_view_depths
@@ -108,8 +110,9 @@ class GlobalSfmEngine(SfmEngine):
     ``device=None`` runs on the CUDA card and raises without one. The pair
     cache, the match-graph shards and ``refine_focal`` work as in
     :class:`SfmEngine` (every BA round self-calibrates). Options the port
-    does not run raise ``NotImplementedError``: a mesh, another extractor
-    and fixed-count RANSAC.
+    does not run raise ``NotImplementedError``: a mesh. The registration's
+    F-filter is adaptive whatever ``RansacConfig.adaptive`` says, as in the
+    JAX engine (``global_sfm.py:1350``).
     """
 
     # Every window pair feeds the view graph, pair (1, 2) included.
@@ -175,10 +178,6 @@ class GlobalSfmEngine(SfmEngine):
             cfg = dataclasses.replace(cfg, ba=dataclasses.replace(cfg.ba, huber_delta=3.0))
         kwargs["config"] = cfg
         super().__init__(img_path, max_img, pair_window=max(2, pair_window), **kwargs)
-
-    def _check_config(self) -> None:
-        if not self.config.ransac.adaptive:
-            raise NotImplementedError("only the adaptive RANSAC stages are ported")
 
     # ------------------------------------------------------------------ pairs
 
@@ -279,8 +278,8 @@ class GlobalSfmEngine(SfmEngine):
     # ------------------------------------------------------------------ stages
 
     def _relative_poses(self) -> None:
-        """Relative pose of every matched pair by batched adaptive essential
-        RANSAC, Sampson refinement of every edge over its inlier set, the
+        """Relative pose of every matched pair by batched essential RANSAC
+        (adaptive, or fixed-count at ``rel_num_hypotheses``), Sampson refinement of every edge over its inlier set, the
         planar-degeneracy fix, then edge weights and inlier sets
         (global_sfm.py:338-476)."""
         t0 = time.perf_counter()
@@ -293,13 +292,24 @@ class GlobalSfmEngine(SfmEngine):
             stack = lambda f, dt=torch.float32: self._dev(np.stack([getattr(pg, f) for pg in pgs_all]), dt)
             p1, p2, K1, K2 = stack("p1"), stack("p2"), stack("K1"), stack("K2")
             mask = stack("mask", torch.bool)
-            res = ransac_essential_pose_adaptive_batch(
-                self._generator, p1, p2, K1, K2, mask,
-                max_hypotheses=self.rel_num_hypotheses,
-                stage_size=min(128, self.rel_num_hypotheses),
-                threshold=self.config.ransac.epipolar_threshold,
-                confidence=self.config.ransac.prob_success, min_cheirality_frac=0.75,
-            )
+            rcfg = self.config.ransac
+            if rcfg.adaptive:
+                # Early-terminating stages; these pair masks are already
+                # epipolar-RANSAC inliers, so almost every lane stops after
+                # the first stage.
+                res = ransac_essential_pose_adaptive_batch(
+                    self._generator, p1, p2, K1, K2, mask,
+                    max_hypotheses=self.rel_num_hypotheses,
+                    stage_size=min(128, self.rel_num_hypotheses),
+                    threshold=rcfg.epipolar_threshold,
+                    confidence=rcfg.prob_success, min_cheirality_frac=0.75,
+                )
+            else:
+                res = ransac_essential_pose_batch(
+                    self._generator, p1, p2, K1, K2, mask,
+                    num_hypotheses=self.rel_num_hypotheses,
+                    threshold=rcfg.epipolar_threshold, min_cheirality_frac=0.75,
+                )
             inl_dev = res.inliers
             R_np, t_np, inl_np, ninl_np, che_np = (
                 v.cpu().numpy() for v in (res.R, res.t, res.inliers, res.num_inliers,

@@ -7,7 +7,8 @@ the device with their state there:
 * features: every image decoded once, one batch for the whole sequence, so
   the Harris kernel runs once per pyramid level;
 * matching: the N-1 consecutive pairs in one launch of the matcher kernel;
-* filter: adaptive F-RANSAC on every pair but (1, 2);
+* filter: adaptive F-RANSAC on every pair but (1, 2) (fixed-count with
+  ``RansacConfig(adaptive=False)``, as every RANSAC stage below);
 * bootstrap: adaptive essential RANSAC on pair (1, 2) with its raw
   ratio-test mask, DLT, 8 Gauss-Newton steps;
 * chain: P3P PnP RANSAC over frames 3..N with the keypoint->track table and
@@ -28,8 +29,13 @@ as the fused front.
 With ``chain_refresh="averaging"`` the chain's poses are refreshed by motion
 averaging over the map's own tracks (``pipeline/chain_refresh.py``) before
 the BA. With ``refine_focal`` the final BA optimises one focal scale shared
-by every camera (``ba/selfcal.py``) and rescales ``global_K``. ``mesh`` and
-``feature_extractor`` raise ``NotImplementedError``.
+by every camera (``ba/selfcal.py``) and rescales ``global_K``. A
+``feature_extractor`` (``make_dog_extractor``, ``SuperPointExtractor``,
+``make_hybrid_extractor`` or any callable of a grayscale image to
+``Features``) replaces the built-in SIFT front end. The chain's PnP is P3P
+whatever ``RansacConfig.pnp_solver`` says: the JAX engine passes no solver
+to its PnP calls, so ``"dlt"`` only raises the hypothesis count to
+``num_iterations()``. ``mesh`` raises ``NotImplementedError``.
 
 ``_candidate_pairs``, ``_match_pairs`` and ``_global_ba(freeze_before=...)``
 serve ``GlobalSfmEngine`` (``pipeline/global_sfm.py``), which inherits them.
@@ -55,17 +61,22 @@ from sfmfromscratch_tpu_torch.geometry.ransac import (
     ransac_essential_pose,
     ransac_essential_pose_adaptive,
     ransac_fundamental_adaptive_batch,
+    ransac_fundamental_batch,
 )
 from sfmfromscratch_tpu_torch.geometry.triangulation import refine_points_gn, triangulate_dlt
 from sfmfromscratch_tpu_torch.io import export
-from sfmfromscratch_tpu_torch.io.images import load_image_u8
+from sfmfromscratch_tpu_torch.io.images import load_image, load_image_u8
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
 from sfmfromscratch_tpu_torch.ops.matcher import match_pairs_batch
 from sfmfromscratch_tpu_torch.pipeline.chain_refresh import averaging_refresh
 from sfmfromscratch_tpu_torch.pipeline.checkpoint import save_checkpoint
-from sfmfromscratch_tpu_torch.pipeline.frontend import extract_features_batch, preprocess_image_batch
+from sfmfromscratch_tpu_torch.pipeline.frontend import (
+    extract_features_batch,
+    preprocess_image,
+    preprocess_image_batch,
+)
 from sfmfromscratch_tpu_torch.pipeline.tracks import MapStore
-from sfmfromscratch_tpu_torch.types import Features, PairGeometry
+from sfmfromscratch_tpu_torch.types import Features, Keypoints, PairGeometry
 from sfmfromscratch_tpu_torch.utils.device import resolve_device
 from sfmfromscratch_tpu_torch.utils.precision import f32_precision
 
@@ -101,18 +112,26 @@ def bootstrap(
     generator: Optional[torch.Generator],
     p1: torch.Tensor, p2: torch.Tensor, K1: torch.Tensor, K2: torch.Tensor,
     mask: torch.Tensor, max_hypotheses: int, threshold: float, stage_size: int = 512,
-    uniforms: Optional[torch.Tensor] = None,
+    uniforms: Optional[torch.Tensor] = None, adaptive: bool = True,
 ):
     """Bootstrap of pair (1, 2) (``incremental.py:100-122``): adaptive
     essential RANSAC in stages of ``stage_size`` (``uniforms`` (stages, S, 8)
-    replaces the draws), DLT and 8 Gauss-Newton steps on its inliers.
-    Returns (inliers, X, rvec, t, P2)."""
+    replaces the draws), or with ``adaptive=False`` fixed-count essential
+    RANSAC of ``max_hypotheses`` (``uniforms`` (max_hypotheses, 8)); then
+    DLT and 8 Gauss-Newton steps on its inliers. Returns (inliers, X, rvec,
+    t, P2)."""
     with f32_precision():
-        pose = ransac_essential_pose_adaptive(
-            generator, p1, p2, K1, K2, mask, max_hypotheses=max_hypotheses,
-            stage_size=stage_size, threshold=threshold, min_cheirality_frac=0.75,
-            uniforms=uniforms,
-        )
+        if adaptive:
+            pose = ransac_essential_pose_adaptive(
+                generator, p1, p2, K1, K2, mask, max_hypotheses=max_hypotheses,
+                stage_size=stage_size, threshold=threshold, min_cheirality_frac=0.75,
+                uniforms=uniforms,
+            )
+        else:
+            pose = ransac_essential_pose(
+                generator, p1, p2, K1, K2, mask, num_hypotheses=max_hypotheses,
+                threshold=threshold, min_cheirality_frac=0.75, uniforms=uniforms,
+            )
         P1 = projection_matrix(torch.eye(3, device=p1.device), torch.zeros(3, device=p1.device), K1)
         P2 = projection_matrix(pose.R, pose.t, K2)
         X = triangulate_dlt(p1, p2, P1, P2)
@@ -263,14 +282,8 @@ class SfmEngine:
         auto_run: bool = True,
         device=None,
     ):
-        off_path = {
-            "mesh": mesh is not None,
-            "feature_extractor": feature_extractor is not None,
-        }
-        for name, set_ in off_path.items():
-            if set_:
-                raise NotImplementedError(
-                    f"{type(self).__name__} option {name!r} is off the ported paths")
+        if mesh is not None:
+            raise NotImplementedError(f"{type(self).__name__} option 'mesh' is off the ported paths")
         choices = {"assoc_mode": (assoc_mode, ("index", "distance")),
                    "on_pose_failure": (on_pose_failure, ("raise", "recover")),
                    "chain_mode": (chain_mode, ("auto", "host", "scan")),
@@ -284,7 +297,6 @@ class SfmEngine:
         self.img_path = img_path
         self.max_img = max_img
         self.config = config or PipelineConfig()
-        self._check_config()
         self.single_K = single_K
         self.camera_sensor = camera_sensor
         self.model_name = model_name
@@ -303,6 +315,9 @@ class SfmEngine:
         self.local_ba_every = local_ba_every
         self.local_ba_window = local_ba_window
         self.chain_refresh = chain_refresh
+        # Called once per image on its preprocessed grayscale; None runs the
+        # built-in SIFT front end.
+        self.feature_extractor = feature_extractor
         # Focal self-calibration: the final BA optimises one focal scale
         # shared by every camera (ba/selfcal.py); focal_scale accumulates it.
         self.refine_focal = bool(refine_focal)
@@ -338,12 +353,6 @@ class SfmEngine:
         if auto_run:
             self.run()
 
-    def _check_config(self) -> None:
-        if self.config.ransac.pnp_solver != "p3p":
-            raise NotImplementedError("only the P3P PnP solver is ported")
-        if not self.config.ransac.adaptive:
-            raise NotImplementedError("only the adaptive RANSAC stages are ported")
-
     # ------------------------------------------------------------------ utils
 
     def _image_file(self, idx: int) -> str:
@@ -375,15 +384,26 @@ class SfmEngine:
     # ------------------------------------------------------------------ stages
 
     def _extract_all_features(self) -> Features:
-        """Features of every image, extracted once, with a leading image axis:
-        the decodes go up as one uint8 stack and run as one batch."""
+        """Features of every image, extracted once, with a leading image axis.
+        The built-in front end takes the decodes up as one uint8 stack and
+        runs them as one batch; a ``feature_extractor`` is called once per
+        image on its float grayscale (``incremental.py:518-522``), and its
+        fixed-capacity Features are stacked."""
         t0 = time.perf_counter()
-        raws = [load_image_u8(self._image_file(i)) for i in range(1, self.max_img + 1)]
-        if len({r.shape for r in raws}) != 1:
-            raise NotImplementedError("the port's engine takes images of one size and mode")
-        stacked = preprocess_image_batch(
-            torch.as_tensor(np.stack(raws), device=self.device), self.config.scale_factor)
-        feats = extract_features_batch(stacked, self.config.extractor)
+        if self.feature_extractor is not None:
+            per = [self.feature_extractor(preprocess_image(
+                load_image(self._image_file(i)), self.config.scale_factor, self.device))
+                for i in range(1, self.max_img + 1)]
+            feats = Features(
+                keypoints=Keypoints(*(torch.stack(v) for v in zip(*(f.keypoints for f in per)))),
+                descriptors=torch.stack([f.descriptors for f in per]))
+        else:
+            raws = [load_image_u8(self._image_file(i)) for i in range(1, self.max_img + 1)]
+            if len({r.shape for r in raws}) != 1:
+                raise NotImplementedError("the port's engine takes images of one size and mode")
+            stacked = preprocess_image_batch(
+                torch.as_tensor(np.stack(raws), device=self.device), self.config.scale_factor)
+            feats = extract_features_batch(stacked, self.config.extractor)
         cap = feats.keypoints.capacity
         self._kp_tracks = {i: np.full(cap, -1, dtype=np.int64) for i in range(1, self.max_img + 1)}
         self._stage_end("features", t0)
@@ -425,20 +445,16 @@ class SfmEngine:
 
         # Every pair but (1, 2) is F-filtered; the bootstrap takes (1, 2)'s
         # raw ratio-test mask (incremental.py:799-802).
-        hyp = rcfg.max_hypotheses()
-        fres = ransac_fundamental_adaptive_batch(
-            gen, p1[1:], p2[1:], res.mask[1:], max_hypotheses=hyp, stage_size=rcfg.stage_size,
-            threshold=rcfg.epipolar_threshold, confidence=rcfg.prob_success,
-        )
-        self.filter_hyps_used = fres.hyps_used.cpu().numpy()
-        filt = torch.cat([res.mask[:1], fres.inliers])
+        hyp = rcfg.max_hypotheses() if rcfg.adaptive else self._num_hyp
+        filt_rows = self._filter(p1[1:], p2[1:], res.mask[1:])
+        filt = torch.cat([res.mask[:1], filt_rows])
         t0 = self._stage_end("filter", t0)
 
         K_host = [self._intrinsics(i) for i in range(1, N + 1)]
         Kt = torch.as_tensor(np.stack(K_host), dtype=torch.float32, device=dev)
         inl, X, rvec0, tvec0, P2_0 = bootstrap(
             gen, p1[0], p2[0], Kt[0], Kt[1], res.mask[0], hyp, rcfg.epipolar_threshold,
-            stage_size=rcfg.stage_size,
+            stage_size=rcfg.stage_size, adaptive=rcfg.adaptive,
         )
         # Device twin of MapStore.add_tracks and of image 2's keypoint table.
         kp_capacity = int(feats.keypoints.capacity)
@@ -476,6 +492,27 @@ class SfmEngine:
         self.global_K.append(np.asarray(K_host[1], np.float64))
         self._finish_chain(rvecs_np, ts_np, oks_np, obs_track_np, obs_xy_np, points_np, K_host[2:])
         self._stage_end("fetch", t0)
+
+    def _filter(self, p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+        """Epipolar inlier masks of P matched pairs (the JAX engine's filter
+        branches, ``incremental.py:318-327, 706-722``): adaptive F-RANSAC in
+        stages up to ``max_hypotheses()``, or with ``adaptive=False``
+        fixed-count F-RANSAC of ``num_iterations()``. Records the hypotheses
+        each pair used in ``filter_hyps_used``."""
+        rcfg = self.config.ransac
+        if rcfg.adaptive:
+            fres = ransac_fundamental_adaptive_batch(
+                self._generator, p1, p2, mask, max_hypotheses=rcfg.max_hypotheses(),
+                stage_size=rcfg.stage_size, threshold=rcfg.epipolar_threshold,
+                confidence=rcfg.prob_success,
+            )
+            self.filter_hyps_used = fres.hyps_used.cpu().numpy()
+        else:
+            fres = ransac_fundamental_batch(self._generator, p1, p2, mask,
+                                            num_hypotheses=self._num_hyp,
+                                            threshold=rcfg.epipolar_threshold)
+            self.filter_hyps_used = np.full(p1.shape[0], self._num_hyp)
+        return fres.inliers
 
     def _set_pair(self, i1: int, i2: int, p1, p2, idx1, idx2, mask, K1, K2) -> None:
         """``pair_geometry`` of numpy arrays, both directions."""
@@ -561,14 +598,13 @@ class SfmEngine:
     def _match_pairs(self, feats: Features) -> None:
         """Matching and F-RANSAC filtering of the candidate pairs
         (``incremental.py:727-840``): this shard's pairs, less those the pair
-        cache resumes, in one matcher launch, then the batched adaptive
-        F-RANSAC filter on every pair but (1, 2) (every pair when the class
+        cache resumes, in one matcher launch, then the batched F-RANSAC
+        filter (``_filter``) on every pair but (1, 2) (every pair when the class
         sets ``_filter_all_pairs``), one fetch, ``pair_geometry`` of numpy
         arrays in both directions, and one atomic write per computed pair.
         A resumed run draws fewer uniforms, so it is deterministic given its
         restart point but differs from an uninterrupted one."""
         dev = self.device
-        rcfg = self.config.ransac
         t0 = time.perf_counter()
         filter_all = bool(getattr(self, "_filter_all_pairs", False))
         pairs = self._candidate_pairs(feats)
@@ -593,13 +629,7 @@ class SfmEngine:
             filt = res.mask
             if rows:
                 ri = torch.tensor(rows, device=dev)
-                fres = ransac_fundamental_adaptive_batch(
-                    self._generator, p1[ri], p2[ri], res.mask[ri],
-                    max_hypotheses=rcfg.max_hypotheses(), stage_size=rcfg.stage_size,
-                    threshold=rcfg.epipolar_threshold, confidence=rcfg.prob_success,
-                )
-                self.filter_hyps_used = fres.hyps_used.cpu().numpy()
-                filt = res.mask.index_put((ri,), fres.inliers)
+                filt = res.mask.index_put((ri,), self._filter(p1[ri], p2[ri], res.mask[ri]))
             idx_np, p1_np, p2_np, filt_np = (
                 v.cpu().numpy() for v in (res.indices, p1, p2, filt))
             for row, k in enumerate(todo):
@@ -630,8 +660,9 @@ class SfmEngine:
         rcfg = self.config.ransac
         inl, X, rvec, t, P2 = bootstrap(
             self._generator, self._dev(pg.p1), self._dev(pg.p2), self._dev(pg.K1),
-            self._dev(pg.K2), self._dev(pg.mask, torch.bool), rcfg.max_hypotheses(),
-            rcfg.epipolar_threshold, stage_size=rcfg.stage_size,
+            self._dev(pg.K2), self._dev(pg.mask, torch.bool),
+            rcfg.max_hypotheses() if rcfg.adaptive else self._num_hyp,
+            rcfg.epipolar_threshold, stage_size=rcfg.stage_size, adaptive=rcfg.adaptive,
         )
         inl_np, X_np, rvec_np, t_np = fetch_packed(inl, X, rvec, t)
         X_np = X_np.astype(np.float64)

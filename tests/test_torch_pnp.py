@@ -150,5 +150,8 @@ def test_pnp_ransac_with_jax_uniforms(outliers):
     own = tpnp.pnp_ransac(torch.Generator().manual_seed(2), _t(X), _t(x), _t(K),
                           _t(mask, torch.bool), **kw)
     assert abs(int(own.num_inliers) - int(ref.num_inliers)) <= 2
-    with pytest.raises(NotImplementedError):
-        tpnp.pnp_ransac(None, _t(X), _t(x), _t(K), solver="dlt", uniforms=_t(u))
+    # The DLT generator runs too (its parity: tests/test_torch_fixed_ransac.py).
+    u6 = _np(jax.random.uniform(key, (128, 6)))
+    dlt = tpnp.pnp_ransac(None, _t(X), _t(x), _t(K), _t(mask, torch.bool), solver="dlt",
+                          uniforms=_t(u6), **kw)
+    assert bool(dlt.ok) and _rot_deg(_np(dlt.R), sc["R2"]) < 0.5

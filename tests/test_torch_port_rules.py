@@ -75,9 +75,13 @@ _SLICE_5 = ("pipeline/checkpoint.py", "io/export.py", "io/images.py", "utils/pro
 # The modules of the scale-out slice (focal self-calibration, retrieval,
 # streaming BA).
 _SLICE_6 = ("ba/selfcal.py", "ops/retrieval.py", "pipeline/streaming.py")
+# The modules of the front-end and fixed-count RANSAC slice (DoG, SuperPoint,
+# the DLT PnP, the batched fixed-count relative poses, eigh null vectors).
+_SLICE_7 = ("ops/dog.py", "ops/superpoint.py", "pipeline/frontend.py", "geometry/pnp.py",
+            "geometry/ransac.py", "ops/smallsvd.py")
 
 
-@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5 + _SLICE_6)
+@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5 + _SLICE_6 + _SLICE_7)
 def test_engine_slice_modules_import_no_jax(rel):
     """Each module of the engine slices exists beside its JAX twin
     (``interop`` is the port's own), and importing it alone in a fresh
@@ -178,12 +182,18 @@ def test_global_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
 def test_engine_options_off_the_default_path_raise(option, tmp_path):
     """Every option of the JAX engine that the port does not run raises
     ``NotImplementedError``; none is ignored. ``refine_focal`` is ported:
-    the engine takes it and starts from a focal scale of 1."""
+    the engine takes it and starts from a focal scale of 1. So is
+    ``feature_extractor``: the engine keeps the callable for its features
+    stage."""
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
     if "refine_focal" in option:
         eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
         assert eng.refine_focal is True and eng.focal_scale == 1.0
+        return
+    if "feature_extractor" in option:
+        eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
+        assert eng.feature_extractor is option["feature_extractor"]
         return
     with pytest.raises(NotImplementedError):
         SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
@@ -229,8 +239,9 @@ def test_engine_chain_refresh_values(tmp_path):
 def test_global_engine_options_off_the_window_path_raise(option, tmp_path):
     """Every option of the JAX global engine that the port does not run
     raises ``NotImplementedError``; none is ignored. The pair modes,
-    keyframing, streaming BA and focal self-calibration are ported: the
-    engine takes each and picks the JAX engine's path for it."""
+    keyframing, streaming BA, focal self-calibration, the extractor slot and
+    fixed-count RANSAC are ported: the engine takes each and picks the JAX
+    engine's path for it."""
     import dataclasses
 
     from sfmfromscratch_tpu_torch.config import PipelineConfig, RansacConfig
@@ -251,9 +262,15 @@ def test_global_engine_options_off_the_window_path_raise(option, tmp_path):
         if "stream_ba_window" in option:
             assert eng.stream_ba_block_cams == 32 and eng.stream_stats is None
         return
+    if "feature_extractor" in option:
+        eng = GlobalSfmEngine(str(tmp_path), 5, device="cpu", auto_run=False, **option)
+        assert eng.feature_extractor is option["feature_extractor"]
+        return
     if "adaptive" in option:
-        option = dict(config=dataclasses.replace(PipelineConfig(),
-                                                 ransac=RansacConfig(adaptive=False)))
+        cfg = dataclasses.replace(PipelineConfig(), ransac=RansacConfig(adaptive=False))
+        eng = GlobalSfmEngine(str(tmp_path), 5, config=cfg, device="cpu", auto_run=False)
+        assert eng.config.ransac.adaptive is False and eng._num_hyp == 5967
+        return
     with pytest.raises(NotImplementedError):
         GlobalSfmEngine(str(tmp_path), 5, device="cpu", auto_run=False, **option)
 
@@ -273,16 +290,21 @@ def test_global_engine_takes_the_pair_cache(tmp_path):
 
 @pytest.mark.parametrize("ransac", [dict(pnp_solver="dlt"), dict(adaptive=False)])
 def test_engine_config_off_the_default_path_raises(ransac, tmp_path):
-    """The DLT PnP generator and the fixed-count RANSAC stages are not run
-    by the port's engine: asking for them raises."""
+    """``pnp_solver="dlt"`` and fixed-count RANSAC are taken with the JAX
+    engine's meaning: "dlt" raises the chain's P3P hypotheses to
+    ``num_iterations()`` (5,967), and ``adaptive=False`` runs every RANSAC
+    stage at that fixed count. Two images still raise (the port's engine
+    needs three)."""
     import dataclasses
 
     from sfmfromscratch_tpu_torch.config import PipelineConfig, RansacConfig
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
     cfg = dataclasses.replace(PipelineConfig(), ransac=RansacConfig(**ransac))
-    with pytest.raises(NotImplementedError):
-        SfmEngine(str(tmp_path), 3, config=cfg, device="cpu", auto_run=False)
+    eng = SfmEngine(str(tmp_path), 3, config=cfg, device="cpu", auto_run=False)
+    assert eng._num_hyp == 5967
+    assert eng._pnp_hyp == (5967 if ransac.get("pnp_solver") == "dlt" else 512)
+    assert eng.config.ransac.adaptive is ransac.get("adaptive", True)
     with pytest.raises(NotImplementedError):
         SfmEngine(str(tmp_path), 2, device="cpu", auto_run=False)
 
