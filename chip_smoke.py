@@ -182,7 +182,7 @@ MATCH_TIE = 1e-5       # index may differ only where (second - best) <= MATCH_TI
 # of the keyframe flow selection; each in f32 and in the bf16 mode
 # (bf16=True).
 MATCH_CASES = [(9, 2499, 2499), (1, 2499, 2499), (1, 2499, 6000), (54, 2499, 2499),
-               (19, 600, 600), (24, 2499, 2499), (46, 2499, 2499)]
+               (19, 600, 600), (24, 2499, 2499), (46, 2499, 2499), (1, 2499, 1250)]
 MATCH_MODES = (False, True)
 # Checked only: a one-row database (second best is the sentinel), ragged
 # tiles on both sides, and widths the wrapper pads to a multiple of 32.
@@ -537,6 +537,44 @@ DLT_CARD_CPU_ROT_DEG = 0.05
 DLT_ROT_ERR_DEG = 0.5
 
 
+# The mesh phase: ranks that share the one card over gloo (NCCL refuses two
+# ranks on one GPU), plus a 1-rank NCCL group. The global run is the
+# extractors phase's 10-view cut of the global orbit, its final BA streamed
+# over 3 blocks of 4 cameras, 2 resident at a time.
+MESH_RANKS = 2
+MESH_GLOBAL_VIEWS = GLOBAL_FIXED_VIEWS
+MESH_STREAM = dict(stream_ba_window=2, stream_ba_block_cams=4)
+# JAX on its 8-device virtual CPU mesh (tools/mesh_pins.py, seeds 0-4), the
+# global run with the stream: ATE over extent 0.0012-0.0103, 0.226-0.382 px
+# after BA, 1711-1765 tracks, 4 windows (seed 0 the outlier of each); its
+# engine run 0.0044-0.0597, 0.119-0.323 px, 2720-3368 tracks, inside the
+# engine phase's pins, which the mesh engine run keeps. The global run takes
+# the global phase's margins: 5x the worst ATE, 1.25x the worst error, 85%
+# of the fewest tracks.
+PIN_MESH_GLOBAL = dict(ate_over_extent=0.0515, reproj_px=0.478, min_tracks=1454)
+MESH_LIMIT_S = 240              # the groups of ranks, spawn to exit
+# The pair-sharded RANSAC against the unsharded call: on the CPU the same
+# bits (tests/test_torch_parallel.py); on the card the inlier sets, counts,
+# cheirality flags and the generator state are the same bits, and R, t and F
+# agree to float32 rounding: CUDA's batched products and row reductions pick
+# their split by the batch's shape, and a shard is a smaller batch (on an
+# NVIDIA H100 80GB HBM3: at most 3.2e-6 in R, 2.3e-5 in the unit t, 2.5e-6
+# in F).
+MESH_RANSAC_FLOAT_GAP = 1e-4
+MESH_COLLECTIVE_TIMEOUT_S = 120
+# Launches per rank: the engine's features shard by image (B=5 per rank at
+# each of 3 pyramid levels), its matcher runs whole on every rank; the
+# global run likewise; tp_match launches the matcher on the rank's shard.
+MESH_LAUNCHES = {
+    "tp_match": {"harris_response_fused": 0, "match_top2_fused": 1,
+                 "match_top2_fused(bf16=True)": 0},
+    "engine": {"harris_response_fused": 3, "match_top2_fused": 1,
+               "match_top2_fused(bf16=True)": 0},
+    "global": {"harris_response_fused": 3, "match_top2_fused": 1,
+               "match_top2_fused(bf16=True)": 0},
+}
+
+
 def scale_cli_argv(seq: str, cache: str, *extra):
     """The scale phase's global ``reconstruct`` command line (both packages'
     CLIs take it)."""
@@ -683,7 +721,8 @@ def harris_phase(dev, peaks):
     # The last case's width is not a multiple of 4: the kernel's scalar path.
     cases = [(10, H, W) for H, W in ENGINE_LEVELS] + [(1, H, W) for H, W in ENGINE_LEVELS] \
         + [(20, H, W) for H, W in ENGINE_LEVELS] + [(20, *ORBIT_LEVELS[1])] \
-        + [(1, 960, 1280), (2, 45, 61)] + [(SCALE_VIEWS, H, W) for H, W in ENGINE_LEVELS]
+        + [(1, 960, 1280), (2, 45, 61)] + [(SCALE_VIEWS, H, W) for H, W in ENGINE_LEVELS] \
+        + [(10 // MESH_RANKS, H, W) for H, W in ENGINE_LEVELS]
     rows = []
     for B, H, W in cases:
         img = torch.rand((B, H, W), generator=gen, device=dev)
@@ -706,6 +745,7 @@ def harris_phase(dev, peaks):
     engine, two_view, global_ = rows[:3], rows[3:6], rows[6:9]
     orbit = [rows[6], rows[9]]
     scale = rows[12:15]
+    mesh = rows[15:18]
     return dict(
         name="harris_response_fused", route="cuda",
         source="sfmfromscratch_tpu_torch/csrc/harris.cu",
@@ -727,6 +767,8 @@ def harris_phase(dev, peaks):
         host_path=_path(engine, "host CLI run: 3 launches, B=10 at 360x480, 327x436, 297x396"),
         scale_path=_path(scale, f"scale keyframes run: 3 launches, B={SCALE_VIEWS} at 360x480, "
                                 "327x436, 297x396"),
+        mesh_path=_path(mesh, f"mesh engine run, per rank: 3 launches, B={10 // MESH_RANKS} at "
+                              "360x480, 327x436, 297x396"),
     )
 
 
@@ -858,8 +900,8 @@ def match_phase(dev, peaks):
         _print({"phase": "match", "mode": "bf16" if bf16 else "f32", "rtol": MATCH_RTOL,
                 "atol": MATCH_ATOL, "tie_rel": MATCH_TIE, "cases": rows, "tie_case": tie,
                 "edge_cases": edges})
-        main, two_view, global_, orbit, host, scale = (rows[0], rows[1], rows[3], rows[4],
-                                                       rows[5], rows[6])
+        main, two_view, global_, orbit, host, scale, shard = (rows[0], rows[1], rows[3], rows[4],
+                                                              rows[5], rows[6], rows[7])
         path_keys = ("device_ms", "call_ms", "bound_ms", "plain_ms", "library_ms")
         kernels.append(dict(
             name="match_top2_fused(bf16=True)" if bf16 else "match_top2_fused", route="cuda",
@@ -884,6 +926,9 @@ def match_phase(dev, peaks):
                              "run's other two launches, the keyframe pairs and the "
                              "registration pairs, are sized by the keyframes it picks; "
                              "the scale phase line gives them)", path_keys),
+            mesh_path=_path([shard], "mesh tp_match, per rank: one launch on the rank's shard, "
+                            "B=1, 2499 x 1250 x 128 (the mesh engine and global runs launch "
+                            "the engine's and the global run's shapes on every rank)", path_keys),
         ))
     return kernels
 
@@ -1023,7 +1068,8 @@ def engine_config():
 
 def engine_phase(dev):
     """``SfmEngine`` on the bench sequence at the bench configuration, cold
-    then warm; returns the warm run's launch counts."""
+    then warm; returns the warm run's launch counts and its final BA problem
+    (on the CPU, with the solver's keywords and the card's result)."""
     import tempfile
 
     import numpy as np
@@ -1106,7 +1152,9 @@ def engine_phase(dev):
         _check(rel <= BA_PREFIX_RTOL, f"BA cost after {k} iterations: card {card} vs CPU {cpu}")
     _check(abs(cpu_e1 - e1) <= BA_FINAL_RTOL * e1, f"BA final error card {e1} vs CPU {cpu_e1}")
     _check(cold_e1 == e1, f"BA final error not reproducible on the card: cold {cold_e1}, warm {e1}")
-    return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16})
+    engine_ba = dict(problem=prob_cpu, points=eng.ba_result.points.cpu().numpy(), e1=e1,
+                     kw=dict(kw, max_iters=b.max_lm_iters))
+    return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16}), engine_ba
 
 
 def _resolve_ba_on_cpu(eng, ba_cfg):
@@ -1877,6 +1925,434 @@ def extractors_phase(dev, peaks):
     return launches, d256
 
 
+def _run_rank_groups(groups, work, device, limit_s):
+    """Start every group of ranks at once, each ``(target, world, args)``
+    running ``target(rank, device, *args)`` in ``world`` spawned processes
+    (``_mesh_rank_main``), and return each group's results in rank order. A
+    rank that exits non-zero, or a wait past ``limit_s``, kills every rank
+    of every group and fails the phase."""
+    import multiprocessing as mp
+    import pickle
+
+    ctx = mp.get_context("spawn")
+    procs = []
+    for target, world, args in groups:
+        store = os.path.join(work, f"store_{target}")
+        procs += [ctx.Process(target=_mesh_rank_main,
+                              args=(target, r, world, store, work, str(device), args))
+                  for r in range(world)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + limit_s
+    try:
+        while True:
+            codes = [p.exitcode for p in procs]
+            if all(c == 0 for c in codes):
+                break
+            _check(not any(c not in (None, 0) for c in codes),
+                   f"mesh: a rank failed (exit codes {codes})")
+            _check(time.monotonic() < deadline, f"mesh: ranks still running after {limit_s} s")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+            p.join(10)
+    out = []
+    for target, world, _ in groups:
+        group = []
+        for r in range(world):
+            with open(os.path.join(work, f"{target}_rank{r}.pkl"), "rb") as f:
+                group.append(pickle.load(f))
+        out.append(group)
+    return out
+
+
+def _mesh_rank_main(target, rank, world, store, work, device, args):
+    """One rank of the mesh phase on ``device``: a 1-rank group (over NCCL
+    on the card), or ``world`` ranks over the backend ``init_distributed``
+    chooses (gloo for ranks that share one card); runs ``target`` and
+    leaves its result in ``work``."""
+    import pickle
+    from datetime import timedelta
+
+    import torch
+    import torch.distributed as dist
+
+    from sfmfromscratch_tpu_torch.parallel.mesh import init_distributed
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        torch.cuda.set_device(0)
+    timeout = timedelta(seconds=MESH_COLLECTIVE_TIMEOUT_S)
+    if world == 1:
+        backend = "nccl" if dev.type == "cuda" else "gloo"
+        dist.init_process_group(backend, init_method=f"file://{store}", world_size=1, rank=0,
+                                timeout=timeout)
+    else:
+        backend = init_distributed(f"file://{store}", world, rank, device=dev, timeout=timeout)
+    try:
+        out = globals()[target](rank, dev, *args)
+        out["backend"] = backend
+    finally:
+        dist.destroy_process_group()
+    with open(os.path.join(work, f"{target}_rank{rank}.pkl"), "wb") as f:
+        pickle.dump(out, f)
+
+
+def _sync(dev) -> None:
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _counting_all_reduce():
+    """Count ``torch.distributed.all_reduce`` calls (the port's collective
+    helpers call it through the module); returns the count's holder."""
+    import torch.distributed as dist
+
+    calls = [0]
+    inner = dist.all_reduce
+
+    def counted(*a, **k):
+        calls[0] += 1
+        return inner(*a, **k)
+
+    dist.all_reduce = counted
+    return calls
+
+
+def _ba_row(res, s=None):
+    return dict(cams=res.cam_params.cpu().numpy(), points=res.points.cpu().numpy(),
+                e0=float(res.initial_mean_error), e1=float(res.final_mean_error),
+                iterations=int(res.iterations_used), s=None if s is None else float(s))
+
+
+def _mesh_nccl_rank(rank, dev, work):
+    """1-rank NCCL mesh: ``bundle_adjust_sharded`` on the engine phase's BA
+    problem against the unsharded solve in this process."""
+    import torch
+
+    from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
+    from sfmfromscratch_tpu_torch.ba.problem import BAProblem
+    from sfmfromscratch_tpu_torch.parallel import bundle_adjust_sharded, make_mesh
+
+    saved = torch.load(os.path.join(work, "engine_ba.pt"), weights_only=False)
+    problem = BAProblem(*(None if v is None else v.to(dev) for v in saved["problem"]))
+    calls = _counting_all_reduce()
+    t0 = time.perf_counter()
+    got = bundle_adjust_sharded(problem, make_mesh(1), **saved["kw"])
+    _sync(dev)
+    wall = time.perf_counter() - t0
+    ref = bundle_adjust(problem, **saved["kw"])
+    same = all(torch.equal(getattr(got, f), getattr(ref, f))
+               for f in ("cam_params", "points", "final_cost", "final_mean_error"))
+    return dict(same_bits=same and got.iterations_used == ref.iterations_used,
+                same_as_engine=bool((got.points.cpu().numpy() == saved["points"]).all()),
+                all_reduces=calls[0], wall_s=wall, **_ba_row(got))
+
+
+def _mesh_gloo_rank(rank, dev, work, seq, orbit, K, Ko):
+    """The 2-rank checks on the card (ranks share it over gloo): sharded BA
+    and selfcal, ``tp_match_ratio_test``, ``SfmEngine(mesh)`` on the bench
+    sequence, the sharded relative-pose RANSAC on its pairs and
+    ``GlobalSfmEngine(mesh, stream)`` on the orbit cut."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from sfmfromscratch_tpu_torch.ba.problem import BAProblem, make_problem
+    from sfmfromscratch_tpu_torch.ba.selfcal import bundle_adjust_selfcal
+    from sfmfromscratch_tpu_torch.config import RansacConfig
+    from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+    from sfmfromscratch_tpu_torch.parallel import bundle_adjust_sharded, make_mesh
+    from sfmfromscratch_tpu_torch.parallel import tp_match_ratio_test
+    from sfmfromscratch_tpu_torch.parallel.mesh import mesh_axis
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    out = {}
+    mesh = make_mesh()                        # (data 2, model 1)
+    mesh_m = make_mesh(model_parallel=2)      # (data 1, model 2)
+    calls = _counting_all_reduce()
+
+    def timed(fn):
+        _zero_launch_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        _sync(dev)
+        return res, time.perf_counter() - t0, _launch_counts()
+
+    saved = torch.load(os.path.join(work, "engine_ba.pt"), weights_only=False)
+    problem = BAProblem(*(None if v is None else v.to(dev) for v in saved["problem"]))
+    calls[0] = 0
+    res, wall, _ = timed(lambda: bundle_adjust_sharded(problem, mesh, **saved["kw"]))
+    out["ba"] = dict(_ba_row(res), wall_s=wall, all_reduces=calls[0])
+
+    pos, kw = focal_observable_arrays(np.random.default_rng(5))
+    ba_kw = dict(max_iters=30, cg_iters=60, ftol=1e-12)
+    fp = make_problem(*pos, **kw, device=dev)
+    calls[0] = 0
+    (res, s), wall, _ = timed(lambda: bundle_adjust_sharded(fp, mesh, selfcal=True, **ba_kw))
+    out["selfcal"] = dict(_ba_row(res, s), wall_s=wall, all_reduces=calls[0])
+    out["selfcal_ref"] = _ba_row(*bundle_adjust_selfcal(fp, **ba_kw))
+
+    pair = torch.load(os.path.join(work, "bench_pair.pt"), weights_only=False)
+    d1, m1, d2, m2 = (pair[k].to(dev) for k in ("d1", "m1", "d2", "m2"))
+    tp, wall, launches = timed(lambda: tp_match_ratio_test(mesh_m, d1, d2, m1, m2,
+                                                           ratio_threshold=0.85))
+    out["tp_match"] = dict(indices=tp.indices.cpu().numpy(), confidence=tp.confidence.cpu().numpy(),
+                           mask=tp.mask.cpu().numpy(), wall_s=wall, launches=launches)
+    # The shard's kernel alone, rank 0 timing while rank 1 waits.
+    ax = mesh_axis(mesh_m, "model")
+    shard = d2.shape[0] // ax.size
+    lo = ax.rank * shard
+    dist.barrier()
+    if rank == 0 and dev.type == "cuda":
+        ms, seen = _profiled_ms(lambda: MK.match_top2_fused(d1, d2[lo:lo + shard], m2[lo:lo + shard]),
+                                ("match_f32_kernel", "merge_segments_kernel"))
+        out["tp_match"].update(shard_device_ms=ms, shard_kernel_activities=seen,
+                               shard_shape=[1, d1.shape[0], shard, d1.shape[1]])
+    dist.barrier()
+
+    cfg = engine_config()
+    calls[0] = 0
+    eng, wall, launches = timed(lambda: SfmEngine(seq, 10, config=cfg, single_K=K, device=dev,
+                                                  mesh=mesh))
+    out["engine"] = dict(poses=[np.hstack(p) for p in eng.global_poses],
+                         errors=[float(e) for e in eng.errors_before_after_ba],
+                         tracks=eng.map.num_tracks, wall_s=wall, launches=launches,
+                         stage_times_s=dict(eng.stage_times), all_reduces=calls[0],
+                         ba_iterations=eng.ba_result.iterations_used,
+                         finite=bool(np.isfinite(eng.map.points()).all()))
+
+    pgs = [eng.pair_geometry[(i, i + 1)] for i in range(1, 10)]
+    pairs = [torch.as_tensor(np.stack([getattr(pg, f) for pg in pgs]), device=dev)
+             for f in ("p1", "p2", "K1", "K2", "mask")]
+    pairs = [a.float() for a in pairs[:4]] + [pairs[4].bool()]
+    out["ransac"] = {}
+    for mode, ransac in (("adaptive", RansacConfig()), ("fixed", RansacConfig(adaptive=False))):
+        gcfg = dataclasses.replace(cfg, ransac=ransac)
+        sharded = GlobalSfmEngine(seq, 10, config=gcfg, device=dev, mesh=mesh, auto_run=False)
+        single = GlobalSfmEngine(seq, 10, config=gcfg, device=dev, auto_run=False)
+        got, wall, _ = timed(lambda: sharded._sharded_relative_poses(mesh_axis(mesh, "data"),
+                                                                     *pairs))
+        ref = single._relative_pose_batch(*pairs)
+        out["ransac"][mode] = dict(
+            same_bits=all(torch.equal(a, b) for a, b in zip(got, ref)), wall_s=wall,
+            fields_equal={f: bool(torch.equal(a, b)) for f, a, b in zip(got._fields, got, ref)},
+            fields_max_gap={f: float((a.double() - b.double()).abs().max())
+                            for f, a, b in zip(got._fields, got, ref)},
+            state=sharded._generator.get_state().numpy(),
+            state_single=single._generator.get_state().numpy(),
+            R=got.R.cpu().numpy(), num_inliers=got.num_inliers.cpu().numpy())
+
+    calls[0] = 0
+    g, wall, launches = timed(lambda: GlobalSfmEngine(orbit, MESH_GLOBAL_VIEWS, config=cfg,
+                                                      single_K=Ko, device=dev, mesh=mesh,
+                                                      **MESH_STREAM))
+    st = g.stream_stats
+    out["global"] = dict(poses=[np.hstack(p) for p in g.global_poses],
+                         errors=[float(e) for e in g.errors_before_after_ba],
+                         tracks=g.map.num_tracks, wall_s=wall, launches=launches,
+                         stage_times_s=dict(g.stage_times), all_reduces=calls[0],
+                         windows=st.windows_run,
+                         resident=st.peak_resident_obs / max(st.total_obs, 1),
+                         finite=bool(np.isfinite(g.map.points()).all()))
+    return out
+
+
+def _similarity_align(src, dst):
+    """``src`` (N, 3) moved by the similarity that best maps it onto
+    ``dst`` in least squares (Umeyama)."""
+    import numpy as np
+
+    src, dst = np.asarray(src, np.float64), np.asarray(dst, np.float64)
+    ms, md = src.mean(0), dst.mean(0)
+    a, b = src - ms, dst - md
+    U, S, Vt = np.linalg.svd(b.T @ a / len(src))
+    D = np.diag([1.0, 1.0, np.sign(np.linalg.det(U @ Vt))])
+    R = U @ D @ Vt
+    scale = np.trace(np.diag(S) @ D) / (a * a).sum(1).mean()
+    return scale * a @ R.T + md
+
+
+def mesh_phase(dev, engine_ba):
+    """Phase 10: the device mesh on the one card. A 1-rank NCCL group runs
+    ``bundle_adjust_sharded`` on the engine phase's BA problem (the same bits
+    as the unsharded solve); then ``MESH_RANKS`` ranks that share the card
+    over gloo run ``_mesh_gloo_rank``'s checks, each held to the CPU tests'
+    tolerances and the engine and mesh pins, every rank's result the same
+    bits. Two ranks on one card measure correctness, not scaling. Returns
+    the launches per rank of each mesh run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch.ops.matcher import match_ratio_test
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_") as work:
+        seq, orbit = os.path.join(work, "bench"), os.path.join(work, "orbit")
+        os.makedirs(seq)
+        os.makedirs(orbit)
+        K, gt = bench_sequence(seq, 10)
+        Ko, gto = orbit_sequence(orbit, MESH_GLOBAL_VIEWS, 4.0)
+        torch.save(engine_ba, os.path.join(work, "engine_ba.pt"))
+
+        # The bench pair's descriptors; the database gains masked rows up to
+        # a multiple of the ranks (its 2,499 rows: one, for shards of 1,250).
+        feats = SfmEngine(seq, 10, config=engine_config(), single_K=K, device=dev,
+                          auto_run=False)._extract_all_features()
+        d1, d2 = feats.descriptors[0], feats.descriptors[1]
+        m1, m2 = feats.keypoints.mask[0], feats.keypoints.mask[1]
+        pad = (-d2.shape[0]) % MESH_RANKS
+        d2 = torch.cat([d2, d2.new_zeros((pad, d2.shape[1]))])
+        m2 = torch.cat([m2, m2.new_zeros(pad)])
+        ref = match_ratio_test(d1, d2, m1, m2, ratio_threshold=0.85, max_matches=d1.shape[0])
+        torch.save({k: v.cpu() for k, v in dict(d1=d1, m1=m1, d2=d2, m2=m2).items()},
+                   os.path.join(work, "bench_pair.pt"))
+
+        t0 = time.perf_counter()
+        (nccl,), ranks = _run_rank_groups(
+            [("_mesh_nccl_rank", 1, (work,)),
+             ("_mesh_gloo_rank", MESH_RANKS, (work, seq, orbit, K, Ko))], work, dev, MESH_LIMIT_S)
+        groups_s = time.perf_counter() - t0
+
+    r0 = ranks[0]
+    eng_rows, glob_rows = [], []
+    for r in ranks:
+        e, g = r["engine"], r["global"]
+        ate, extent = trajectory_error([(p[:3], p[3:]) for p in e["poses"]], gt)
+        eng_rows.append(dict(cameras=len(e["poses"]), ate_over_extent=ate / extent,
+                             reproj_before_px=e["errors"][0], reproj_after_px=e["errors"][1],
+                             tracks=e["tracks"], finite=e["finite"]))
+        ate, extent = trajectory_error([(p[:3], p[3:]) for p in g["poses"]], gto, first_image=1)
+        glob_rows.append(dict(cameras=len(g["poses"]), ate_over_extent=ate / extent,
+                              reproj_before_px=g["errors"][0], reproj_after_px=g["errors"][1],
+                              tracks=g["tracks"], finite=g["finite"]))
+    ref_idx = ref.indices.cpu().numpy()
+    ref_mask = ref.mask.cpu().numpy()
+    ref_set = {tuple(x) for x in ref_idx[ref_mask]}
+    tp = r0["tp_match"]
+    tp_set = {tuple(x) for x in tp["indices"][tp["mask"]]}
+    ref_conf = np.sort(ref.confidence.cpu().numpy()[ref_mask])
+    tp_conf = np.sort(tp["confidence"][tp["mask"]])
+    # The engine's problem has a free similarity gauge (image 1 is not in
+    # it) and 2-view tracks nearly free along their rays (ROADMAP.md
+    # section 3), so the points are compared on tracks of 3 or more views,
+    # after aligning the gauge on them.
+    ba_ref = engine_ba
+    prob = engine_ba["problem"]
+    views = np.bincount(prob.obs_pt[prob.obs_w > 0].numpy(), minlength=prob.num_points)
+    multi = views >= 3
+    ba_pts = _similarity_align(r0["ba"]["points"][multi], ba_ref["points"][multi])
+    rows = dict(
+        ranks=MESH_RANKS, backend_ranks=r0["backend"], backend_one_rank=nccl["backend"],
+        staged_collectives=[], groups_wall_s=groups_s,
+        nccl_ba=dict(same_bits=nccl["same_bits"], same_as_engine=nccl["same_as_engine"],
+                     reproj_after_px=nccl["e1"], iterations=nccl["iterations"],
+                     all_reduces=nccl["all_reduces"], wall_s=nccl["wall_s"]),
+        per_rank=[dict(
+            ba=dict(reproj_after_px=r["ba"]["e1"], iterations=r["ba"]["iterations"],
+                    all_reduces=r["ba"]["all_reduces"], wall_s=r["ba"]["wall_s"]),
+            selfcal=dict(s=r["selfcal"]["s"], s_unsharded=r["selfcal_ref"]["s"],
+                         reproj_after_px=r["selfcal"]["e1"],
+                         reproj_after_px_unsharded=r["selfcal_ref"]["e1"],
+                         iterations=r["selfcal"]["iterations"],
+                         all_reduces=r["selfcal"]["all_reduces"], wall_s=r["selfcal"]["wall_s"]),
+            tp_match={k: v for k, v in r["tp_match"].items()
+                      if k not in ("indices", "confidence", "mask")},
+            engine=dict(eng_rows[i], wall_s=r["engine"]["wall_s"], launches=r["engine"]["launches"],
+                        stage_times_s=r["engine"]["stage_times_s"],
+                        all_reduces=r["engine"]["all_reduces"],
+                        ba_iterations=r["engine"]["ba_iterations"]),
+            ransac={m: dict(same_bits=v["same_bits"], wall_s=v["wall_s"],
+                            fields_equal=v["fields_equal"], fields_max_gap=v["fields_max_gap"],
+                            state_equal=bool(np.array_equal(v["state"], v["state_single"])))
+                    for m, v in r["ransac"].items()},
+            global_=dict(glob_rows[i], wall_s=r["global"]["wall_s"],
+                         launches=r["global"]["launches"], windows=r["global"]["windows"],
+                         resident=r["global"]["resident"],
+                         stage_times_s=r["global"]["stage_times_s"],
+                         all_reduces=r["global"]["all_reduces"]),
+        ) for i, r in enumerate(ranks)],
+        unsharded=dict(ba_reproj_after_px=ba_ref["e1"], matches=len(ref_set)),
+        ba_points_max_gap=float(np.abs(r0["ba"]["points"] - ba_ref["points"]).max()),
+        ba_points_3plus=int(multi.sum()),
+        ba_points_3plus_max_gap_aligned=float(np.abs(ba_pts - ba_ref["points"][multi]).max()),
+        ba_points_3plus_within_tol=float(np.isclose(ba_pts, ba_ref["points"][multi], rtol=0.05,
+                                                    atol=0.02).all(1).mean()),
+        tp_matches=len(tp_set), phase_s=time.perf_counter() - t_phase,
+        note="ranks share one card: these walls check correctness, not scaling",
+        pins={"engine": {"cameras": PIN_ENGINE_CAMERAS, "ate_over_extent": PIN_ENGINE_ATE,
+                         "reproj_px": PIN_ENGINE_REPROJ_PX, "min_tracks": PIN_ENGINE_MIN_TRACKS},
+              "global": PIN_MESH_GLOBAL, "launches": MESH_LAUNCHES})
+    _print(dict(phase="mesh", **rows))
+
+    _check(r0["backend"] == "gloo" and nccl["backend"] == "nccl",
+           f"backends {r0['backend']}, {nccl['backend']}")
+    _check(nccl["same_bits"], "1-rank NCCL mesh: sharded BA differs from the unsharded solve")
+    for r in ranks[1:]:
+        for key in ("ba", "selfcal"):
+            for f in ("cams", "points"):
+                _check(np.array_equal(r[key][f], r0[key][f]), f"mesh {key}: ranks differ in {f}")
+        for key in ("engine", "global"):
+            _check(np.array_equal(np.stack(r[key]["poses"]), np.stack(r0[key]["poses"])),
+                   f"mesh {key}: ranks' poses differ")
+        for f in ("indices", "confidence", "mask"):
+            _check(np.array_equal(r["tp_match"][f], tp[f]), f"mesh tp_match: ranks differ in {f}")
+    b = r0["ba"]
+    _check(abs(b["e1"] - ba_ref["e1"]) < 0.05, f"mesh BA: {b['e1']} px vs unsharded {ba_ref['e1']}")
+    _check(bool(np.allclose(ba_pts, ba_ref["points"][multi], rtol=0.05, atol=0.02)),
+           "mesh BA: points of 3+ views off the unsharded solve's")
+    sc, scr = r0["selfcal"], r0["selfcal_ref"]
+    _check(abs(sc["s"] - 1 / 1.06) < 0.01, f"mesh selfcal: s = {sc['s']}")
+    _check(abs(sc["s"] - scr["s"]) < 5e-3, f"mesh selfcal: s {sc['s']} vs unsharded {scr['s']}")
+    _check(abs(sc["e1"] - scr["e1"]) < 0.05, f"mesh selfcal: {sc['e1']} px vs {scr['e1']}")
+    _check(tp_set == ref_set, f"mesh tp_match: {len(tp_set)} matches, unsharded {len(ref_set)}")
+    _check(bool(np.allclose(tp_conf, ref_conf, atol=1e-5)), "mesh tp_match: confidences")
+    for i, r in enumerate(ranks):
+        _check(r["tp_match"]["launches"] == MESH_LAUNCHES["tp_match"],
+               f"mesh tp_match launches on rank {i}: {r['tp_match']['launches']}")
+        for mode, v in r["ransac"].items():
+            for f in ("inliers", "num_inliers", "cheirality_ok"):
+                _check(v["fields_equal"][f], f"mesh RANSAC {mode} on rank {i}: {f} differs")
+            for f in ("R", "t", "F"):
+                _check(v["fields_max_gap"][f] <= MESH_RANSAC_FLOAT_GAP,
+                       f"mesh RANSAC {mode} on rank {i}: {f} off by {v['fields_max_gap'][f]}")
+            _check(bool(np.array_equal(v["R"], r0["ransac"][mode]["R"])),
+                   f"mesh RANSAC {mode}: rank {i}'s poses differ from rank 0's")
+            _check(bool(np.array_equal(v["state"], v["state_single"])),
+                   f"mesh RANSAC {mode} on rank {i}: generator state differs")
+            _check(bool(np.array_equal(v["state"], r0["ransac"][mode]["state"])),
+                   f"mesh RANSAC {mode}: rank {i}'s generator state differs from rank 0's")
+        _check(r["engine"]["launches"] == MESH_LAUNCHES["engine"],
+               f"mesh engine launches on rank {i}: {r['engine']['launches']}")
+        _check(r["global"]["launches"] == MESH_LAUNCHES["global"],
+               f"mesh global launches on rank {i}: {r['global']['launches']}")
+    e = eng_rows[0]
+    _check(e["cameras"] == PIN_ENGINE_CAMERAS, f"mesh engine: {e['cameras']} cameras")
+    _check(e["finite"], "mesh engine: non-finite points")
+    _check(e["ate_over_extent"] <= PIN_ENGINE_ATE, f"mesh engine: ATE over extent {e['ate_over_extent']}")
+    _check(e["reproj_after_px"] <= PIN_ENGINE_REPROJ_PX, f"mesh engine: {e['reproj_after_px']} px")
+    _check(e["tracks"] >= PIN_ENGINE_MIN_TRACKS, f"mesh engine: {e['tracks']} tracks")
+    g = glob_rows[0]
+    _check(g["cameras"] == MESH_GLOBAL_VIEWS, f"mesh global: {g['cameras']} cameras")
+    _check(r0["global"]["windows"] >= 2, f"mesh global: {r0['global']['windows']} stream windows")
+    _check(bool(np.allclose(r0["global"]["poses"][0], 0.0, atol=1e-5)),
+           "mesh global: camera 0 is not the identity")
+    _check(g["reproj_after_px"] <= g["reproj_before_px"], "mesh global: BA made it worse")
+    _check_pins("mesh global", g, PIN_MESH_GLOBAL)
+    return {run: r0[run]["launches"] for run in ("tp_match", "engine", "global")}
+
+
 def main(argv) -> int:
     only_kernels = "--only-kernels" in argv
     try:
@@ -1915,12 +2391,13 @@ def main(argv) -> int:
                   "no result line", file=sys.stderr)
             return 0
         two_view = slice_phase(dev)
-        launches = engine_phase(dev)
+        launches, engine_ba = engine_phase(dev)
         global_ = global_phase(dev)
         orbit = orbit_phase(dev)
         host = host_phase(dev)
         scale = scale_phase(dev)
         extractors, d256 = extractors_phase(dev, peaks)
+        mesh = mesh_phase(dev, engine_ba)
         kernels[1]["superpoint_d256"] = d256
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
@@ -1930,6 +2407,7 @@ def main(argv) -> int:
             k["launches_host"] = host.get(k["name"], 0)
             k["launches_scale"] = scale.get(k["name"], 0)
             k["launches_extractors"] = extractors.get(k["name"], {})
+            k["launches_mesh_per_rank"] = {run: n.get(k["name"], 0) for run, n in mesh.items()}
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

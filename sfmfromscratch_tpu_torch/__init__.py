@@ -8,8 +8,9 @@ launches it for CUDA tensors and runs its plain PyTorch version for CPU
 tensors.
 
 Ported so far: the two-view reconstruction path
-(``pipeline/two_view.py::reconstruct_two_view``), the incremental engine on
-its default path (``pipeline/incremental.py::SfmEngine``), and the modules
-they reach.
+(``pipeline/two_view.py::reconstruct_two_view``), both engines
+(``pipeline/incremental.py::SfmEngine``, ``pipeline/global_sfm.py``) with
+their options, the device mesh on ``torch.distributed`` (``parallel/``),
+and the modules they reach.
 The package imports neither ``jax`` nor ``sfmfromscratch_tpu``.
 """

@@ -12,6 +12,12 @@ exact dense solve) may end the solve.
 ``selfcal=True`` adds one shared focal scale ``s`` to the unknowns: a border
 on the Schur-reduced camera system, solved by two PCG solves on the same
 operator (``ba/selfcal.py`` has the algebra). It has no dense path.
+
+``reduce_fn`` (None: the identity) reduces every cross-observation sum: the
+cost, the mean error's numerator and count, the normal blocks and the
+selfcal border. ``parallel/sharded_ba.py`` runs this loop on each rank's
+observation shard with an ``all_reduce``; the reduced values are equal on
+every rank, so every rank takes the same accept/reject and stop decisions.
 """
 
 from __future__ import annotations
@@ -71,13 +77,13 @@ class LMRunOut(NamedTuple):
     iterations_used: int
 
 
-def _mean_err(p: BAProblem, cam: torch.Tensor, pts: torch.Tensor) -> torch.Tensor:
+def _mean_err(p: BAProblem, cam: torch.Tensor, pts: torch.Tensor, red) -> torch.Tensor:
     r = residuals(p, cam, pts)
     w = p.obs_w
     err = torch.linalg.norm(r, dim=-1) / torch.clamp_min(w, 1e-12)
     err = torch.where(w > 0, err, 0.0)
-    n = torch.sum((w > 0).to(r.dtype))
-    return torch.sum(err) / torch.clamp_min(n, 1.0)
+    n = red(torch.sum((w > 0).to(r.dtype)))
+    return red(torch.sum(err)) / torch.clamp_min(n, 1.0)
 
 
 def _selfcal_border_jacobian(base: BAProblem, p_s: BAProblem, r: torch.Tensor,
@@ -92,31 +98,33 @@ def _selfcal_border_jacobian(base: BAProblem, p_s: BAProblem, r: torch.Tensor,
 
 
 @mm_f32
-def _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, cam_fixed):
+def _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, cam_fixed, red=None):
     """Bordered Schur solve of the selfcal system (points already
     eliminated): two PCG solves on the same operator, u = S^-1 b_c and
     v = S^-1 q, then ds = (b_s - q.u) / (h_ss - q.v) and dc = u - ds v.
     Frozen cameras' steps are zeroed before the point back-substitution, so
-    the points back-substitute the camera step that is applied."""
+    the points back-substitute the camera step that is applied. ``red``
+    reduces the border's sums (Hss, gs, Wsp, Hsc, q) as the normal blocks."""
+    red = red or (lambda x: x)
     C = op.U.shape[0]
     Pn = op.Vinv.shape[0]
     eps = 1e-8
-    Hss = torch.sum(Js * Js)
+    Hss = red(torch.sum(Js * Js))
     Hss_d = Hss * (1.0 + lam) + eps
-    gs = torch.sum(Js * r)
-    Wsp = segment_sum(torch.einsum("ok,okj->oj", Js, Jp), op.obs_pt, Pn)     # (P, 3)
-    Hsc = segment_sum(torch.einsum("ok,oki->oi", Js, Jc), op.obs_cam, C)     # (C, 6)
-    VinvWsp = torch.einsum("pij,pj->pi", op.Vinv, Wsp)                       # (P, 3)
+    gs = red(torch.sum(Js * r))
+    Wsp = red(segment_sum(torch.einsum("ok,okj->oj", Js, Jp), op.obs_pt, Pn))  # (P, 3)
+    Hsc = red(segment_sum(torch.einsum("ok,oki->oi", Js, Jc), op.obs_cam, C))  # (C, 6)
+    VinvWsp = torch.einsum("pij,pj->pi", op.Vinv, Wsp)                         # (P, 3)
     d_o = torch.einsum("oij,oj->oi", op.W, VinvWsp[op.obs_pt])
-    q = Hsc - segment_sum(d_o, op.obs_cam, C)
+    q = Hsc - red(segment_sum(d_o, op.obs_cam, C))
     hss_red = Hss_d - torch.sum(Wsp * VinvWsp)
     b_s = gs - torch.sum(Wsp * torch.einsum("pij,pj->pi", op.Vinv, op.gp))
 
-    b_c = schur_rhs(op)
+    b_c = schur_rhs(op, red)
     Uinv = torch.linalg.inv_ex(op.U)[0]
 
     def mv(x):
-        return schur_matvec(op, x.reshape(C, 6)).reshape(-1)
+        return schur_matvec(op, x.reshape(C, 6), red).reshape(-1)
 
     def pc(x):
         return torch.einsum("cij,cj->ci", Uinv, x.reshape(C, 6)).reshape(-1)
@@ -128,7 +136,7 @@ def _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, cam_fixed):
     ds = (b_s - torch.dot(qf, u)) / torch.where(torch.abs(denom) < 1e-12, 1e-12, denom)
     dc = (u - ds * v).reshape(C, 6)
     dc = torch.where(cam_fixed[:, None], 0.0, dc)
-    dp = back_substitute_points(op, dc) - ds * VinvWsp
+    dp = back_substitute_points(op, dc, red) - ds * VinvWsp
     return dc, dp, ds
 
 
@@ -145,13 +153,17 @@ def lm_run(
     damping_down: float,
     ftol: float,
     forcing: bool = True,
+    reduce_fn=None,
 ) -> LMRunOut:
     """Run LM from ``base``'s cameras and points to convergence (a tightly
     solved accepted step with relative cost decrease < ``ftol``) or
     ``max_iters``; with ``selfcal`` the shared focal scale moves too,
-    clipped to [0.5, 2]."""
+    clipped to [0.5, 2]. ``base``'s observation arrays may be a shard of
+    the problem's, with ``reduce_fn`` summing over the shards; cameras,
+    points and K are whole on every shard."""
     if selfcal and use_dense:
         raise ValueError("the bordered selfcal solve has no dense path")
+    red = reduce_fn or (lambda x: x)
     C = base.num_cameras
     Pn = base.num_points
     dtype = base.points.dtype
@@ -166,13 +178,13 @@ def lm_run(
     def cost_fn(cam, pts, s):
         p = scaled(s)
         if huber_delta > 0:
-            return robust_cost(p, cam, pts, huber_delta)
-        return total_cost(p, cam, pts)
+            return red(robust_cost(p, cam, pts, huber_delta))
+        return red(total_cost(p, cam, pts))
 
     cam, pts = base.cam_params, base.points
     s = scalar(1.0)
     cost0 = cost_fn(cam, pts, s)
-    err0 = _mean_err(scaled(s), cam, pts)
+    err0 = _mean_err(scaled(s), cam, pts, red)
     lam = scalar(init_damping)
     cost = cost0
     done = torch.zeros((), dtype=torch.bool, device=dev)
@@ -191,14 +203,15 @@ def lm_run(
             Jp = Jp * hw[:, None, None]
             if selfcal:
                 Js = Js * hw[:, None]
-        op = build_normal_blocks(Jc, Jp, r, base.obs_cam, base.obs_pt, C, Pn, lam)
+        op = build_normal_blocks(Jc, Jp, r, base.obs_cam, base.obs_pt, C, Pn, lam, red)
         if selfcal:
-            dc, dp, ds = _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, base.cam_fixed)
+            dc, dp, ds = _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, base.cam_fixed,
+                                         red)
         elif use_dense:
-            dc, dp = solve_schur_dense(op)
+            dc, dp = solve_schur_dense(op, red)
             eta_used = torch.zeros_like(eta)   # exact solve: always "tight"
         else:
-            dc, dp = solve_schur(op, cg_iters=cg_iters, tol_rel=eta)
+            dc, dp = solve_schur(op, cg_iters=cg_iters, tol_rel=eta, reduce_fn=red)
 
         dc = torch.where(base.cam_fixed[:, None], 0.0, dc)
         cam_new = cam - dc
@@ -228,6 +241,6 @@ def lm_run(
     return LMRunOut(
         cam_params=cam, points=pts, s=s,
         initial_cost=cost0, final_cost=cost,
-        initial_mean_error=err0, final_mean_error=_mean_err(scaled(s), cam, pts),
+        initial_mean_error=err0, final_mean_error=_mean_err(scaled(s), cam, pts, red),
         iterations_used=it,
     )

@@ -15,8 +15,14 @@ Segment sums are ``index_add_`` on the CPU and the sort-based
 with atomics in whatever order the threads land, so the same problem took
 another LM path, to another final error, from run to run. Two backends: the
 exact dense Cholesky of S for small camera counts (``dense_gate``), and
-matrix-free block-Jacobi PCG otherwise. The JAX package's ``reduce_fn`` (a ``psum`` for its sharded
-solver) has no counterpart here: the port runs on one device.
+matrix-free block-Jacobi PCG otherwise.
+
+Every cross-observation sum takes ``reduce_fn`` (None: the identity), applied
+right after the local segment sum. The observation-sharded solver
+(``parallel/sharded_ba.py``) passes an ``all_reduce`` over the ``data`` axis:
+each rank sums its own observations and the reduced blocks are equal on
+every rank. Damping, inverses and the dense Cholesky act on the reduced
+values.
 """
 
 from __future__ import annotations
@@ -39,6 +45,10 @@ class SchurOperands(NamedTuple):
     obs_pt: torch.Tensor   # (O,)
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
 def segment_sum(x: torch.Tensor, idx: torch.Tensor, num_segments: int) -> torch.Tensor:
     """``jax.ops.segment_sum`` for in-range indices, deterministic on every
     device (each segment adds its rows in index order)."""
@@ -54,20 +64,24 @@ def build_normal_blocks(
     obs_cam: torch.Tensor, obs_pt: torch.Tensor,
     num_cameras: int, num_points: int,
     lam: torch.Tensor,
+    reduce_fn=None,
 ) -> SchurOperands:
     """Assemble damped U, V^-1, W, gc, gp from per-observation blocks.
+    ``reduce_fn`` reduces the four segment sums across observation shards
+    before the damping, which thus acts on the fully reduced diagonal.
     Damping is multiplicative on the diagonal, diag += lam * diag + 1e-8;
     V is inverted by the closed-form SPD Cholesky (``inv3_spd``)."""
+    red = reduce_fn or _identity
     UtU = torch.einsum("oki,okj->oij", Jc, Jc)          # (O, 6, 6)
     VtV = torch.einsum("oki,okj->oij", Jp, Jp)          # (O, 3, 3)
     W = torch.einsum("oki,okj->oij", Jc, Jp)            # (O, 6, 3)
     gc_o = torch.einsum("oki,ok->oi", Jc, r)            # (O, 6)
     gp_o = torch.einsum("oki,ok->oi", Jp, r)            # (O, 3)
 
-    U = segment_sum(UtU, obs_cam, num_cameras)
-    V = segment_sum(VtV, obs_pt, num_points)
-    gc = segment_sum(gc_o, obs_cam, num_cameras)
-    gp = segment_sum(gp_o, obs_pt, num_points)
+    U = red(segment_sum(UtU, obs_cam, num_cameras))
+    V = red(segment_sum(VtV, obs_pt, num_points))
+    gc = red(segment_sum(gc_o, obs_cam, num_cameras))
+    gp = red(segment_sum(gp_o, obs_pt, num_points))
 
     eps = 1e-8
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
@@ -79,30 +93,34 @@ def build_normal_blocks(
 
 
 @mm_f32
-def schur_matvec(op: SchurOperands, x: torch.Tensor) -> torch.Tensor:
-    """S x = U x - W V^-1 W' x for x of shape (C, 6)."""
+def schur_matvec(op: SchurOperands, x: torch.Tensor, reduce_fn=None) -> torch.Tensor:
+    """S x = U x - W V^-1 W' x for x of shape (C, 6); two reductions when
+    sharded."""
+    red = reduce_fn or _identity
     num_points = op.Vinv.shape[0]
     Ux = torch.einsum("cij,cj->ci", op.U, x)
     a = torch.einsum("oji,oj->oi", op.W, x[op.obs_cam])            # W' x  (O, 3)
-    b = segment_sum(a, op.obs_pt, num_points)
+    b = red(segment_sum(a, op.obs_pt, num_points))
     c = torch.einsum("pij,pj->pi", op.Vinv, b)                     # V^-1  (P, 3)
     d = torch.einsum("oij,oj->oi", op.W, c[op.obs_pt])             # W     (O, 6)
-    return Ux - segment_sum(d, op.obs_cam, op.U.shape[0])
+    return Ux - red(segment_sum(d, op.obs_cam, op.U.shape[0]))
 
 
 @mm_f32
-def schur_rhs(op: SchurOperands) -> torch.Tensor:
+def schur_rhs(op: SchurOperands, reduce_fn=None) -> torch.Tensor:
     """b = gc - W V^-1 gp."""
+    red = reduce_fn or _identity
     c = torch.einsum("pij,pj->pi", op.Vinv, op.gp)
     d = torch.einsum("oij,oj->oi", op.W, c[op.obs_pt])
-    return op.gc - segment_sum(d, op.obs_cam, op.U.shape[0])
+    return op.gc - red(segment_sum(d, op.obs_cam, op.U.shape[0]))
 
 
 @mm_f32
-def back_substitute_points(op: SchurOperands, dc: torch.Tensor) -> torch.Tensor:
+def back_substitute_points(op: SchurOperands, dc: torch.Tensor, reduce_fn=None) -> torch.Tensor:
     """dp = V^-1 (gp - W' dc)."""
+    red = reduce_fn or _identity
     a = torch.einsum("oji,oj->oi", op.W, dc[op.obs_cam])
-    b = segment_sum(a, op.obs_pt, op.Vinv.shape[0])
+    b = red(segment_sum(a, op.obs_pt, op.Vinv.shape[0]))
     return torch.einsum("pij,pj->pi", op.Vinv, op.gp - b)
 
 
@@ -165,18 +183,21 @@ def dense_schur_from_blocks(U: torch.Tensor, Vinv: torch.Tensor, Bflat: torch.Te
 
 
 @mm_f32
-def solve_schur_dense(op: SchurOperands) -> Tuple[torch.Tensor, torch.Tensor]:
+def solve_schur_dense(op: SchurOperands, reduce_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact dense Cholesky solve of the reduced camera system (small camera
     counts). Where S is not positive definite the step is NaN, as the JAX
-    ``cho_factor`` gives, and LM rejects it."""
+    ``cho_factor`` gives, and LM rejects it. Sharded, the per-(point, camera)
+    blocks are reduced before the quadratic form (S is quadratic in them)."""
+    red = reduce_fn or _identity
     C = op.U.shape[0]
     P = op.Vinv.shape[0]
-    S = dense_schur_from_blocks(op.U, op.Vinv, point_cam_blocks(op.W, op.obs_cam, op.obs_pt, C, P))
-    b = schur_rhs(op).reshape(-1)
+    S = dense_schur_from_blocks(op.U, op.Vinv,
+                                red(point_cam_blocks(op.W, op.obs_cam, op.obs_pt, C, P)))
+    b = schur_rhs(op, red).reshape(-1)
     L, info = torch.linalg.cholesky_ex(S)
     dc = torch.cholesky_solve(b[:, None], L)[:, 0]
     dc = torch.where(info == 0, dc, float("nan")).reshape(C, 6)
-    return dc, back_substitute_points(op, dc)
+    return dc, back_substitute_points(op, dc, red)
 
 
 # Dense path only below this camera count, and while the per-(point, camera)
@@ -195,19 +216,20 @@ def dense_gate(num_cameras: int, num_points: int) -> bool:
 
 
 @mm_f32
-def solve_schur(op: SchurOperands, cg_iters: int, tol_rel=0.0) -> Tuple[torch.Tensor, torch.Tensor]:
+def solve_schur(op: SchurOperands, cg_iters: int, tol_rel=0.0,
+                reduce_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Solve the reduced camera system by PCG with the damped camera blocks
     U^-1 as block-Jacobi preconditioner, then back-substitute the points.
     Returns (dc (C, 6), dp (P, 3)), the LM descent direction (to subtract)."""
-    b = schur_rhs(op)
+    b = schur_rhs(op, reduce_fn)
     Uinv = torch.linalg.inv_ex(op.U)[0]
 
     def mv(xflat):
-        return schur_matvec(op, xflat.reshape(b.shape)).reshape(-1)
+        return schur_matvec(op, xflat.reshape(b.shape), reduce_fn).reshape(-1)
 
     def pc(rflat):
         return torch.einsum("cij,cj->ci", Uinv, rflat.reshape(b.shape)).reshape(-1)
 
     dc = conjugate_gradient(mv, b.reshape(-1), num_iters=cg_iters, precond=pc,
                             tol_rel=tol_rel).reshape(b.shape)
-    return dc, back_substitute_points(op, dc)
+    return dc, back_substitute_points(op, dc, reduce_fn)

@@ -475,6 +475,7 @@ def ransac_essential_pose_adaptive_batch(
     min_cheirality_frac: float = 0.75,
     cheirality_subset: int = 512,
     uniforms: Optional[torch.Tensor] = None,
+    draw=None,
 ) -> RansacPoseResult:
     """Adaptive (early-terminating) relative-pose RANSAC for P pairs, each
     with its own intrinsics (ransac.py:443-630: the single-pair program and
@@ -490,7 +491,12 @@ def ransac_essential_pose_adaptive_batch(
     field gains a leading P dimension.
 
     ``uniforms`` (P, stages, stage_size, s) replaces the draws from
-    ``generator``: lane b's stage k uses ``uniforms[b, k]``.
+    ``generator``: lane b's stage k uses ``uniforms[b, k]``. ``draw``
+    replaces both: ``draw(go, stage)`` takes the (P,) host mask of the
+    lanes that would go on and returns the lanes that do and their
+    (A, stage_size, s) uniforms, or uniforms None to stop. The pair-sharded
+    relative poses of ``pipeline/global_sfm.py`` decide there, over every
+    rank's lanes, which lanes go on and which uniforms each one takes.
     """
     P, n = p1.shape[0], p1.shape[1]
     dev, dt = p1.device, p1.dtype
@@ -512,18 +518,25 @@ def ransac_essential_pose_adaptive_batch(
     lsc = torch.full((P,), float("-inf"), dtype=torch.float32, device=dev)
     best_cnt = torch.zeros((P,), dtype=torch.int32, device=dev)
     stage = 0
+    if draw is None:
+        def draw(go, stage):
+            if not bool(go.any()):
+                return go, None
+            if uniforms is None:
+                return go, torch.rand((int(go.sum()), stage_size, sample_size),
+                                      generator=generator, device=dev, dtype=torch.float32)
+            return go, uniforms[go.nonzero()[:, 0], stage].to(dev)
+
     while True:
-        go = _keep_going(best_cnt, done, n_valid, stage_size, max_hypotheses, sample_size,
-                         confidence).cpu()
-        if not bool(go.any()):
+        go, u = draw(_keep_going(best_cnt, done, n_valid, stage_size, max_hypotheses,
+                                 sample_size, confidence).cpu(), stage)
+        if u is None:
             break
         ld = torch.nonzero(go)[:, 0].to(dev)
         A = ld.shape[0]
-        if uniforms is None:
-            u = torch.rand((A, stage_size, sample_size), generator=generator, device=dev,
-                           dtype=torch.float32)
-        else:
-            u = uniforms[go.nonzero()[:, 0], stage].to(dev)
+        if A == 0:      # a shard whose lanes have all stopped while other ranks' draw
+            stage += 1
+            continue
         q1, q2, m, mf = p1[ld], p2[ld], mask[ld], maskf[ld]
         k1, k2 = K1[ld][:, None], K2[ld][:, None]
         idx = uniforms_to_indices(u, n, m, sample_size)                   # (A, S, s)

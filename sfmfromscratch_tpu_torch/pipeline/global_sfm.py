@@ -1,6 +1,5 @@
 """Global Structure-from-Motion engine: motion averaging instead of a chain
-(counterpart of ``sfmfromscratch_tpu/pipeline/global_sfm.py``, without a
-mesh).
+(counterpart of ``sfmfromscratch_tpu/pipeline/global_sfm.py``).
 
 Stages, each batched over the whole sequence:
 
@@ -33,6 +32,11 @@ stands. Device stages run on the engine's device on edge lists padded to the
 JAX engine's buckets (``_bucket(E, 128)``): rotation averaging normalises its
 weights by their mean over the padded list, so the padding is part of the
 result. Camera c observes through image c+1; camera 0 is the gauge anchor.
+
+On a ``mesh`` the engine shards where the JAX engine does: the features and
+every BA as :class:`SfmEngine` (the streaming BA's window solves too), and
+the relative-pose RANSAC by pair over the ``data`` axis, each lane with the
+uniforms an unsharded run gives it (``_sharded_relative_poses``).
 """
 
 from __future__ import annotations
@@ -72,6 +76,7 @@ from sfmfromscratch_tpu_torch.geometry.two_view import refine_relative_pose
 from sfmfromscratch_tpu_torch.native.bindings import build_tracks
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
 from sfmfromscratch_tpu_torch.ops.retrieval import retrieval_similarity
+from sfmfromscratch_tpu_torch.parallel.mesh import MeshAxis, all_gather_cat, is_writer, mesh_axis
 from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 from sfmfromscratch_tpu_torch.pipeline.streaming import MapBlockStore, stream_bundle_adjust
 from sfmfromscratch_tpu_torch.types import Features
@@ -109,10 +114,10 @@ class GlobalSfmEngine(SfmEngine):
 
     ``device=None`` runs on the CUDA card and raises without one. The pair
     cache, the match-graph shards and ``refine_focal`` work as in
-    :class:`SfmEngine` (every BA round self-calibrates). Options the port
-    does not run raise ``NotImplementedError``: a mesh. The registration's
-    F-filter is adaptive whatever ``RansacConfig.adaptive`` says, as in the
-    JAX engine (``global_sfm.py:1350``).
+    :class:`SfmEngine` (every BA round self-calibrates), and so does a
+    ``mesh``. The registration's F-filter is adaptive whatever
+    ``RansacConfig.adaptive`` says, as in the JAX engine
+    (``global_sfm.py:1350``).
     """
 
     # Every window pair feeds the view graph, pair (1, 2) included.
@@ -292,24 +297,11 @@ class GlobalSfmEngine(SfmEngine):
             stack = lambda f, dt=torch.float32: self._dev(np.stack([getattr(pg, f) for pg in pgs_all]), dt)
             p1, p2, K1, K2 = stack("p1"), stack("p2"), stack("K1"), stack("K2")
             mask = stack("mask", torch.bool)
-            rcfg = self.config.ransac
-            if rcfg.adaptive:
-                # Early-terminating stages; these pair masks are already
-                # epipolar-RANSAC inliers, so almost every lane stops after
-                # the first stage.
-                res = ransac_essential_pose_adaptive_batch(
-                    self._generator, p1, p2, K1, K2, mask,
-                    max_hypotheses=self.rel_num_hypotheses,
-                    stage_size=min(128, self.rel_num_hypotheses),
-                    threshold=rcfg.epipolar_threshold,
-                    confidence=rcfg.prob_success, min_cheirality_frac=0.75,
-                )
+            ax = mesh_axis(self.mesh, "data")
+            if ax is None:
+                res = self._relative_pose_batch(p1, p2, K1, K2, mask)
             else:
-                res = ransac_essential_pose_batch(
-                    self._generator, p1, p2, K1, K2, mask,
-                    num_hypotheses=self.rel_num_hypotheses,
-                    threshold=rcfg.epipolar_threshold, min_cheirality_frac=0.75,
-                )
+                res = self._sharded_relative_poses(ax, p1, p2, K1, K2, mask)
             inl_dev = res.inliers
             R_np, t_np, inl_np, ninl_np, che_np = (
                 v.cpu().numpy() for v in (res.R, res.t, res.inliers, res.num_inliers,
@@ -346,6 +338,70 @@ class GlobalSfmEngine(SfmEngine):
         for e, k in enumerate(pairs):
             self._edge_inl[k] = inl_masks[e] if good[e] else np.zeros_like(inl_masks[e])
         self._stage_end("relative_poses", t0)
+
+    def _relative_pose_batch(self, p1, p2, K1, K2, mask, draw=None, uniforms=None):
+        """Essential RANSAC of a batch of pairs: adaptive (``draw`` may
+        replace its draws), or fixed-count at ``rel_num_hypotheses``
+        (``uniforms`` may replace its draws)."""
+        rcfg = self.config.ransac
+        if rcfg.adaptive:
+            # Early-terminating stages; these pair masks are already
+            # epipolar-RANSAC inliers, so almost every lane stops after the
+            # first stage.
+            return ransac_essential_pose_adaptive_batch(
+                self._generator, p1, p2, K1, K2, mask,
+                max_hypotheses=self.rel_num_hypotheses,
+                stage_size=min(128, self.rel_num_hypotheses),
+                threshold=rcfg.epipolar_threshold,
+                confidence=rcfg.prob_success, min_cheirality_frac=0.75, draw=draw,
+            )
+        return ransac_essential_pose_batch(
+            self._generator, p1, p2, K1, K2, mask,
+            num_hypotheses=self.rel_num_hypotheses,
+            threshold=rcfg.epipolar_threshold, min_cheirality_frac=0.75, uniforms=uniforms,
+        )
+
+    def _sharded_relative_poses(self, ax: MeshAxis, p1, p2, K1, K2, mask):
+        """The relative-pose RANSAC sharded by pair over ``ax``
+        (``global_sfm.py:353-386``): the E pairs are padded with the last pair
+        to a multiple of the axis, each rank runs its contiguous block, and
+        the results are all-gathered. Each lane takes the uniforms of the
+        unsharded call, and the generator ends where that call leaves it:
+        the fixed-count path draws the whole (E, hypotheses, 8) block on
+        every rank and takes its rows; the adaptive path agrees on the
+        active lanes of every rank at each stage (an ``all_gather``), draws
+        the whole stage for them, and gives each of its lanes that lane's
+        rows. Padding lanes draw nothing and are dropped. On the CPU the
+        result is the unsharded call's bits; on the card its integer fields
+        are, and R, t and F agree to float32 rounding (CUDA's batched
+        kernels split their sums by the batch's shape)."""
+        E, dev, gen = p1.shape[0], p1.device, self._generator
+        per = -(-E // ax.size)
+        lanes = torch.arange(ax.rank * per, (ax.rank + 1) * per)
+        real = lanes < E
+        rows = lanes.clamp_max(E - 1).to(dev)
+        local = [a[rows] for a in (p1, p2, K1, K2, mask)]
+        rcfg = self.config.ransac
+        if rcfg.adaptive:
+            stage_size = min(128, self.rel_num_hypotheses)
+
+            def draw(go, stage):
+                go = go & real
+                go_all = all_gather_cat(go.to(dev), ax).cpu()[:E]
+                active = int(go_all.sum())
+                if active == 0:
+                    return go, None
+                u = torch.rand((active, stage_size, 8), generator=gen, device=dev,
+                               dtype=torch.float32)
+                slot = torch.cumsum(go_all.to(torch.int64), 0) - 1
+                return go, u[slot[lanes[go]].to(dev)]
+
+            res = self._relative_pose_batch(*local, draw=draw)
+        else:
+            u = torch.rand((E, self.rel_num_hypotheses, 8), generator=gen, device=dev,
+                           dtype=torch.float32)
+            res = self._relative_pose_batch(*local, uniforms=u[rows])
+        return type(res)(*(all_gather_cat(v, ax)[:E] for v in res))
 
     def _fix_planar_degenerate_edges(self, pairs, pgs_all, inl_masks, ninl, Eb) -> None:
         """Replace the pose of every edge whose epipolar inliers are >= 0.8x
@@ -1085,7 +1141,9 @@ class GlobalSfmEngine(SfmEngine):
         (``global_sfm.py:1502-1549``): spill the map to camera blocks in a
         temporary directory, sweep the window over them ``max(2,
         ba_rounds)`` times with a regate between sweeps, read the refined
-        state back. No focal self-calibration on this path."""
+        state back, each window solve sharded over ``mesh`` when there is
+        one. Every rank keeps its own store. No focal self-calibration on
+        this path."""
         t0 = time.perf_counter()
         frames, tracks, xy = self.map.observations()
         cam_params = np.array([np.hstack([rv, t]) for rv, t in self.global_poses])
@@ -1098,7 +1156,8 @@ class GlobalSfmEngine(SfmEngine):
             stats = stream_bundle_adjust(
                 store, window_blocks=self.stream_ba_window, sweeps=max(2, self.ba_rounds),
                 max_iters=ba.max_lm_iters, cg_iters=60, ftol=ba.ftol,
-                huber_delta=ba.huber_delta, regate_px=self.regate_px, device=self.device)
+                huber_delta=ba.huber_delta, regate_px=self.regate_px, device=self.device,
+                mesh=self.mesh)
             cams, _ = store.read_cameras()
             ids, xyz = store.read_points()
             pts = self.map.points().copy()
@@ -1179,6 +1238,6 @@ class GlobalSfmEngine(SfmEngine):
         else:
             self._ba_rounds()
         self.stage_times["total"] = time.perf_counter() - t0
-        if self.model_name is not None:
+        if self.model_name is not None and is_writer(self.mesh):
             self.save_data()
         return self

@@ -35,7 +35,15 @@ by every camera (``ba/selfcal.py``) and rescales ``global_K``. A
 ``Features``) replaces the built-in SIFT front end. The chain's PnP is P3P
 whatever ``RansacConfig.pnp_solver`` says: the JAX engine passes no solver
 to its PnP calls, so ``"dlt"`` only raises the hypothesis count to
-``num_iterations()``. ``mesh`` raises ``NotImplementedError``.
+``num_iterations()``.
+
+With a ``mesh`` (a ``DeviceMesh`` of ``parallel/mesh.py``) every rank runs
+the whole engine on the full host state, and the engine shards where the
+JAX engine does, over the mesh's ``data`` axis: the feature batch by image
+(each rank extracts its block of images and the Features are all-gathered)
+and every bundle adjustment by observation (``parallel/sharded_ba.py``,
+with the selfcal border in the final BA). Only the mesh's first rank writes
+``save_data`` and checkpoints.
 
 ``_candidate_pairs``, ``_match_pairs`` and ``_global_ba(freeze_before=...)``
 serve ``GlobalSfmEngine`` (``pipeline/global_sfm.py``), which inherits them.
@@ -50,6 +58,7 @@ from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.distributed.device_mesh import DeviceMesh
 
 from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
 from sfmfromscratch_tpu_torch.ba.problem import make_problem, pad_problem
@@ -68,6 +77,8 @@ from sfmfromscratch_tpu_torch.io import export
 from sfmfromscratch_tpu_torch.io.images import load_image, load_image_u8
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
 from sfmfromscratch_tpu_torch.ops.matcher import match_pairs_batch
+from sfmfromscratch_tpu_torch.parallel.mesh import all_gather_cat, is_writer, mesh_axis
+from sfmfromscratch_tpu_torch.parallel.sharded_ba import bundle_adjust_sharded
 from sfmfromscratch_tpu_torch.pipeline.chain_refresh import averaging_refresh
 from sfmfromscratch_tpu_torch.pipeline.checkpoint import save_checkpoint
 from sfmfromscratch_tpu_torch.pipeline.frontend import (
@@ -282,8 +293,8 @@ class SfmEngine:
         auto_run: bool = True,
         device=None,
     ):
-        if mesh is not None:
-            raise NotImplementedError(f"{type(self).__name__} option 'mesh' is off the ported paths")
+        if mesh is not None and not isinstance(mesh, DeviceMesh):
+            raise TypeError(f"mesh must be a torch.distributed DeviceMesh, got {type(mesh).__name__}")
         choices = {"assoc_mode": (assoc_mode, ("index", "distance")),
                    "on_pose_failure": (on_pose_failure, ("raise", "recover")),
                    "chain_mode": (chain_mode, ("auto", "host", "scan")),
@@ -306,6 +317,9 @@ class SfmEngine:
         self.checkpoint_every = checkpoint_every
         self.checkpoint_path = checkpoint_path
         self.chain_mode = chain_mode
+        # A DeviceMesh: every rank runs the engine (SPMD); features shard by
+        # image and BA by observation over its "data" axis.
+        self.mesh = mesh
         # pair_window=1 is the reference's consecutive-only match graph; w>1
         # also matches (i, i+2..i+w) and links those observations into
         # existing tracks.
@@ -388,7 +402,11 @@ class SfmEngine:
         The built-in front end takes the decodes up as one uint8 stack and
         runs them as one batch; a ``feature_extractor`` is called once per
         image on its float grayscale (``incremental.py:518-522``), and its
-        fixed-capacity Features are stacked."""
+        fixed-capacity Features are stacked. On a mesh with a ``data`` axis
+        the built-in front end's batch shards by image
+        (``incremental.py:543-595``): padded with copies of the first image
+        to a multiple of the axis, each rank extracts its contiguous block and
+        the Features are all-gathered."""
         t0 = time.perf_counter()
         if self.feature_extractor is not None:
             per = [self.feature_extractor(preprocess_image(
@@ -401,9 +419,17 @@ class SfmEngine:
             raws = [load_image_u8(self._image_file(i)) for i in range(1, self.max_img + 1)]
             if len({r.shape for r in raws}) != 1:
                 raise NotImplementedError("the port's engine takes images of one size and mode")
+            ax = mesh_axis(self.mesh, "data")
+            rank, size = (ax.rank, ax.size) if ax is not None else (0, 1)
+            per = -(-len(raws) // size)
+            block = [raws[i if i < len(raws) else 0] for i in range(rank * per, (rank + 1) * per)]
             stacked = preprocess_image_batch(
-                torch.as_tensor(np.stack(raws), device=self.device), self.config.scale_factor)
+                torch.as_tensor(np.stack(block), device=self.device), self.config.scale_factor)
             feats = extract_features_batch(stacked, self.config.extractor)
+            if ax is not None:
+                gather = lambda t: all_gather_cat(t, ax)[:self.max_img]
+                feats = Features(keypoints=Keypoints(*(gather(t) for t in feats.keypoints)),
+                                 descriptors=gather(feats.descriptors))
         cap = feats.keypoints.capacity
         self._kp_tracks = {i: np.full(cap, -1, dtype=np.int64) for i in range(1, self.max_img + 1)}
         self._stage_end("features", t0)
@@ -645,7 +671,9 @@ class SfmEngine:
             for k in results:
                 pg = self.pair_geometry[k]
                 f = self._pair_cache_file(*k)
-                tmp = f + ".tmp.npz"   # savez keeps a name that ends in .npz
+                # savez keeps a name that ends in .npz; the pid keeps ranks
+                # that share the cache from writing one temporary file.
+                tmp = f"{f}.{os.getpid()}.tmp.npz"
                 np.savez(tmp, tag=tag, p1=pg.p1, p2=pg.p2, idx1=pg.idx1, idx2=pg.idx2, mask=pg.mask)
                 os.replace(tmp, f)
         self._stage_end("filter", t0)
@@ -814,7 +842,7 @@ class SfmEngine:
                 rv_l, t_l = self.global_poses[-1]
                 P2 = projection_matrix(so3_exp(self._dev(rv_l)), self._dev(t_l), K2)
 
-            if self.checkpoint_every and j % self.checkpoint_every == 0:
+            if self.checkpoint_every and j % self.checkpoint_every == 0 and is_writer(self.mesh):
                 path = self.checkpoint_path or os.path.join(self.output_dir, "checkpoint.npz")
                 save_checkpoint(self, path, next_frame=j + 1)
         self._stage_end("chain", t0)
@@ -905,9 +933,17 @@ class SfmEngine:
                   damping_up=ba.damping_up, damping_down=ba.damping_down, ftol=ba.ftol,
                   huber_delta=ba.huber_delta)
         # The final BA only: a scaled K in a local BA would leave the chain
-        # registering later frames at the unscaled K.
-        if self.refine_focal and stage == "ba":
+        # registering later frames at the unscaled K. On a mesh every BA
+        # shards by observation, the selfcal border too (incremental.py:1412-1428).
+        selfcal = self.refine_focal and stage == "ba"
+        if mesh_axis(self.mesh, "data") is not None:
+            out = bundle_adjust_sharded(problem, self.mesh, selfcal=selfcal, **kw)
+            res, s_dev = out if selfcal else (out, None)
+        elif selfcal:
             res, s_dev = bundle_adjust_selfcal(problem, **kw)
+        else:
+            res, s_dev = bundle_adjust(problem, **kw), None
+        if selfcal:
             s = float(s_dev)
             self.focal_scale *= s
             for i in range(len(self.global_K)):
@@ -917,8 +953,6 @@ class SfmEngine:
                 self.global_K[i] = Kn
             self.warnings.append(
                 f"focal self-calibration: cumulative scale {self.focal_scale:.4f}")
-        else:
-            res = bundle_adjust(problem, **kw)
         pts = res.points[:num_pts].cpu().numpy()
         cams = res.cam_params[:num_cams].cpu().numpy()
         self.errors_before_after_ba = (float(res.initial_mean_error), float(res.final_mean_error))
@@ -946,7 +980,7 @@ class SfmEngine:
             averaging_refresh(self)
         self._global_ba()
         self.stage_times["total"] = time.perf_counter() - t0
-        if self.model_name is not None:
+        if self.model_name is not None and is_writer(self.mesh):
             self.save_data()
         return self
 

@@ -9,7 +9,8 @@ package is read by the other. The solver advances a window of blocks:
 1. load the blocks of the current window (cameras, their observations and
    the window's track copies),
 2. solve the window with the port's Schur LM (``ba/lm.py``) on the device,
-   with boundary cameras (already refined by an earlier window) and boundary
+   sharded by observation over a mesh's ``data`` axis when one is given
+   (``parallel/sharded_ba.py``), with boundary cameras (already refined by an earlier window) and boundary
    tracks (observed outside the window) frozen through ``cam_fixed`` and
    ``pt_fixed``,
 3. write the refined cameras and interior tracks back to the resident
@@ -354,13 +355,17 @@ def stream_bundle_adjust(
     cameras and tracks frozen (see the module docstring). Several ``sweeps``
     re-run the window schedule forward with every camera freed again
     (Gauss-Seidel), with a regate between sweeps when ``regate_px > 0``.
-    ``mesh`` (the JAX package's sharded window solve) is not ported."""
+    With ``mesh`` (a ``DeviceMesh`` with a ``data`` axis) each window solve
+    is ``bundle_adjust_sharded`` (``streaming.py:431-436``): every rank
+    holds its own store and runs the same window schedule; the solves are
+    mesh-wide."""
     from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
     from sfmfromscratch_tpu_torch.ba.problem import make_problem, pad_problem
+    from sfmfromscratch_tpu_torch.parallel.mesh import mesh_axis
+    from sfmfromscratch_tpu_torch.parallel.sharded_ba import bundle_adjust_sharded
     from sfmfromscratch_tpu_torch.utils.device import resolve_device
 
-    if mesh is not None:
-        raise NotImplementedError("the sharded window solve (mesh) is not ported")
+    sharded = mesh_axis(mesh, "data") is not None
     device = resolve_device(device)
     B = store.num_blocks
     window_blocks = max(1, min(window_blocks, B))
@@ -422,8 +427,11 @@ def stream_bundle_adjust(
                 cams, pts, local_cam, local_pt, obs_xy, Ks,
                 cam_fixed=cam_fixed, pt_fixed=pt_fixed, device=device,
             ))
-            res = bundle_adjust(problem, max_iters=max_iters, cg_iters=cg_iters, ftol=ftol,
-                                huber_delta=huber_delta)
+            kw = dict(max_iters=max_iters, cg_iters=cg_iters, ftol=ftol, huber_delta=huber_delta)
+            if sharded:
+                res = bundle_adjust_sharded(problem, mesh, **kw)
+            else:
+                res = bundle_adjust(problem, **kw)
             new_cams = res.cam_params[: cams.shape[0]].cpu().numpy().astype(np.float64)
             new_pts = res.points[: pts.shape[0]].cpu().numpy().astype(np.float64)
             stats.window_errors.append(float(res.final_mean_error))

@@ -49,6 +49,7 @@ def test_port_imports_no_jax_in_a_fresh_process():
         "bad = sorted(n for n in sys.modules if n.split('.')[0] in "
         f"{_FORBIDDEN!r})\n"
         "print('LOADED', len([n for n in sys.modules if n.startswith(p.__name__)]))\n"
+        "print('PARALLEL', sorted(n for n in sys.modules if n.startswith(p.__name__ + '.parallel')))\n"
         "print('FORBIDDEN', bad)\n"
     )
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -57,6 +58,8 @@ def test_port_imports_no_jax_in_a_fresh_process():
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN []" in r.stdout, r.stdout
     assert int(r.stdout.split("LOADED")[1].split()[0]) >= 30
+    for m in ("mesh", "sharded_ba", "sharded_match"):
+        assert f"sfmfromscratch_tpu_torch.parallel.{m}" in r.stdout, r.stdout
 
 
 # The modules of the engine slice, at the JAX package's paths.
@@ -79,16 +82,19 @@ _SLICE_6 = ("ba/selfcal.py", "ops/retrieval.py", "pipeline/streaming.py")
 # the DLT PnP, the batched fixed-count relative poses, eigh null vectors).
 _SLICE_7 = ("ops/dog.py", "ops/superpoint.py", "pipeline/frontend.py", "geometry/pnp.py",
             "geometry/ransac.py", "ops/smallsvd.py")
+# The modules of the mesh slice (torch.distributed).
+_SLICE_8 = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ba.py",
+            "parallel/sharded_match.py")
 
 
-@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5 + _SLICE_6 + _SLICE_7)
+@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5 + _SLICE_6 + _SLICE_7 + _SLICE_8)
 def test_engine_slice_modules_import_no_jax(rel):
     """Each module of the engine slices exists beside its JAX twin
     (``interop`` is the port's own), and importing it alone in a fresh
     interpreter loads neither ``jax`` nor the JAX package."""
     assert rel == "interop.py" or (ROOT / "sfmfromscratch_tpu" / rel).exists()
     assert (PORT / rel).exists()
-    mod = "sfmfromscratch_tpu_torch." + rel[:-3].replace("/", ".")
+    mod = "sfmfromscratch_tpu_torch." + rel[:-3].replace("/", ".").replace(".__init__", "")
     code = (f"import sys, {mod}\n"
             f"print('FORBIDDEN', sorted(n for n in sys.modules if n.split('.')[0] in {_FORBIDDEN!r}))\n")
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -103,6 +109,8 @@ def test_port_sources_name_no_jax():
     or the JAX package, not even inside a function."""
     files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
     assert len(files) >= 20
+    assert {PORT / "parallel" / f for f in ("mesh.py", "sharded_ba.py", "sharded_match.py")} \
+        <= set(files)
     for path in files:
         for node in ast.walk(ast.parse(path.read_text(), str(path))):
             if isinstance(node, ast.Import):
@@ -176,27 +184,53 @@ def test_global_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):
                                           (3, 4), (3, 5), (4, 5)]
 
 
+@pytest.fixture
+def one_rank_mesh(tmp_path):
+    """A 1-rank gloo process group in this process and its (1, 1) mesh."""
+    import torch.distributed as dist
+
+    from sfmfromscratch_tpu_torch.parallel import make_mesh
+
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'store'}", world_size=1,
+                            rank=0)
+    try:
+        yield make_mesh(1)
+    finally:
+        dist.destroy_process_group()
+
+
+def _check_mesh_option(engine_cls, tmp_path, mesh, n):
+    """``mesh=object()`` is refused with ``TypeError``; a ``DeviceMesh`` is
+    taken and kept, and its ``data`` axis is the one the engine shards on."""
+    from sfmfromscratch_tpu_torch.parallel.mesh import mesh_axis
+
+    with pytest.raises(TypeError, match="DeviceMesh"):
+        engine_cls(str(tmp_path), n, device="cpu", auto_run=False, mesh=object())
+    eng = engine_cls(str(tmp_path), n, device="cpu", auto_run=False, mesh=mesh)
+    assert eng.mesh is mesh
+    assert mesh_axis(eng.mesh, "data").size == 1
+
+
 @pytest.mark.parametrize("option", [
     dict(mesh=object()), dict(feature_extractor=lambda im: None), dict(refine_focal=True),
 ])
-def test_engine_options_off_the_default_path_raise(option, tmp_path):
-    """Every option of the JAX engine that the port does not run raises
-    ``NotImplementedError``; none is ignored. ``refine_focal`` is ported:
-    the engine takes it and starts from a focal scale of 1. So is
-    ``feature_extractor``: the engine keeps the callable for its features
-    stage."""
+def test_engine_options_off_the_default_path_raise(option, tmp_path, request):
+    """Every option of the JAX engine is taken; none is ignored.
+    ``refine_focal`` is ported: the engine takes it and starts from a focal
+    scale of 1. So is ``feature_extractor``: the engine keeps the callable
+    for its features stage. So is ``mesh``: anything but a ``DeviceMesh``
+    is refused with ``TypeError``, and a 1-rank gloo mesh is kept."""
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
+    if "mesh" in option:
+        _check_mesh_option(SfmEngine, tmp_path, request.getfixturevalue("one_rank_mesh"), 3)
+        return
     if "refine_focal" in option:
         eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
         assert eng.refine_focal is True and eng.focal_scale == 1.0
         return
-    if "feature_extractor" in option:
-        eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
-        assert eng.feature_extractor is option["feature_extractor"]
-        return
-    with pytest.raises(NotImplementedError):
-        SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
+    eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False, **option)
+    assert eng.feature_extractor is option["feature_extractor"]
 
 
 @pytest.mark.parametrize("option, scan, fused", [
@@ -236,12 +270,12 @@ def test_engine_chain_refresh_values(tmp_path):
     dict(refine_focal=True),
     dict(feature_extractor=lambda im: None), dict(adaptive=False),
 ])
-def test_global_engine_options_off_the_window_path_raise(option, tmp_path):
-    """Every option of the JAX global engine that the port does not run
-    raises ``NotImplementedError``; none is ignored. The pair modes,
-    keyframing, streaming BA, focal self-calibration, the extractor slot and
-    fixed-count RANSAC are ported: the engine takes each and picks the JAX
-    engine's path for it."""
+def test_global_engine_options_off_the_window_path_raise(option, tmp_path, request):
+    """Every option of the JAX global engine is taken; none is ignored. The
+    pair modes, keyframing, streaming BA, focal self-calibration, the
+    extractor slot, fixed-count RANSAC and the mesh are ported: the engine
+    takes each and picks the JAX engine's path for it (a mesh must be a
+    ``DeviceMesh``; ``object()`` raises ``TypeError``)."""
     import dataclasses
 
     from sfmfromscratch_tpu_torch.config import PipelineConfig, RansacConfig
@@ -271,8 +305,7 @@ def test_global_engine_options_off_the_window_path_raise(option, tmp_path):
         eng = GlobalSfmEngine(str(tmp_path), 5, config=cfg, device="cpu", auto_run=False)
         assert eng.config.ransac.adaptive is False and eng._num_hyp == 5967
         return
-    with pytest.raises(NotImplementedError):
-        GlobalSfmEngine(str(tmp_path), 5, device="cpu", auto_run=False, **option)
+    _check_mesh_option(GlobalSfmEngine, tmp_path, request.getfixturevalue("one_rank_mesh"), 5)
 
 
 def test_global_engine_takes_the_pair_cache(tmp_path):

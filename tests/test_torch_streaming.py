@@ -140,12 +140,30 @@ def test_stream_regate_drops_gross_observations(rng, tmp_path):
 
 
 def test_stream_mesh_is_not_ported(rng, tmp_path):
-    """The sharded window solve (``mesh``) raises rather than being
-    ignored."""
+    """The sharded window solve (``mesh``) is ported: anything but a
+    ``DeviceMesh`` raises ``TypeError``, and on a 1-rank gloo mesh every
+    window solve goes through ``bundle_adjust_sharded`` and gives the
+    unsharded sweep's bits (the sharded solves across ranks are
+    ``tests/test_torch_parallel.py``'s)."""
+    import torch.distributed as dist
+
+    from sfmfromscratch_tpu_torch.parallel import make_mesh
+
     m, _ = _synthetic_map(rng, C=16, track_len=6)
+    kw = dict(window_blocks=1, max_iters=4, cg_iters=20, device="cpu")
     store = _build(tstream, tmp_path, m, block_cams=8)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         tstream.stream_bundle_adjust(store, mesh=object(), device="cpu")
+    ref_store = _build(tstream, tmp_path, m, 8, "ref")
+    ref = tstream.stream_bundle_adjust(ref_store, **kw)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'pg'}", world_size=1, rank=0)
+    try:
+        got = tstream.stream_bundle_adjust(store, mesh=make_mesh(1), **kw)
+    finally:
+        dist.destroy_process_group()
+    assert got.windows_run == ref.windows_run == 2
+    assert got.final_error == ref.final_error < got.initial_error
+    np.testing.assert_array_equal(store.read_cameras()[0], ref_store.read_cameras()[0])
 
 
 def test_stream_bundle_adjust_needs_cuda_unless_cpu(rng, tmp_path, monkeypatch):
