@@ -69,11 +69,27 @@ Phases, each printing JSON lines:
              with the matcher kernel at D=256 on its descriptors; DLT PnP
              card against CPU. Launches counted per run; held to pins beside
              the JAX package's CPU spread (``tools/extractor_pins.py``).
+10. mesh   — ``parallel/`` on ``torch.distributed``: a 1-rank NCCL group,
+             then 2 gloo ranks on the one card (sharded BA and selfcal,
+             ``tp_match_ratio_test``, both engines with ``mesh=``); held to
+             pins beside the JAX package's CPU mesh (``tools/mesh_pins.py``).
+11. compat — the reference's class API (``compat.py``) at the bench widths:
+             ``NaiveSIFT`` and ``ScaleRotInvSIFT`` (card against CPU),
+             ``NNRatioFeatureMatcher``, ``FeatureRunner``, ``CameraPose``
+             with the canonical and a non-canonical base, triangulation,
+             ``PnPRansac``/``PnP``, ``BundleAdjustment`` on the engine
+             phase's problem (card against CPU), ``SFMRunner`` on the bench
+             sequence rendered at 720x960; the engine on images of two sizes
+             and on two images; an ``AsyncCheckpointer`` round trip.
+             Launches counted per run; held to pins beside the JAX package's
+             CPU spread (``tools/compat_pins.py``). The global phase's line
+             also says whether its tracks came from the C++ union-find
+             (``native_tracks``), checked against the numpy one.
 
 The line before last is ``{"kernels": [...]}``, with each kernel's launch
-counts on every path (engine, two-view, global, orbit, host, scale, and per
-run of the extractors phase), the f32 matcher's row with its D=256 case
-(``superpoint_d256``); the last is
+counts on every path (engine, two-view, global, orbit, host, scale, per
+run of the extractors, mesh and compat phases), the f32 matcher's row with
+its D=256 case (``superpoint_d256``); the last is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line. Without a CUDA card, or without the rest of the repository
 beside this file, it exits non-zero at once.
@@ -575,6 +591,56 @@ MESH_LAUNCHES = {
 }
 
 
+# The compat phase: the reference's class API (compat.py) and the engine's
+# odd inputs at the bench widths.
+COMPAT_VIEWS = 10
+MIXED_PAD = 16
+# Pins from the JAX package on the CPU (tools/compat_pins.py, 9 cameras in
+# every run; config.seed 0-14 for sfmrunner and mixed: seeds 0-4 missed the
+# bootstrap's tail, 0.158 and 0.121 of extent at seeds 11 and 5):
+#   sfmrunner (SFMRunner's configuration on the bench sequence rendered at
+#     720x960, f=1040, prescaled by 0.5): ATE over extent 0.0091-0.1578,
+#     post-BA error 0.081-0.306 px, tracks 3033-3547;
+#   mixed (the bench configuration, view 2 padded by 16 px, each image
+#     extracted on its own): 0.0045-0.1215, 0.115-0.375 px, tracks 2829-3389;
+#   two_image (SfmEngine(max_img=2) on the slice phase's pair, seeds 0-4):
+#     rotation error 0.167-0.341 deg, translation direction 2.5-24.5 deg,
+#     inside the slice phase's pins, which the two-image run keeps.
+# The margins are the engine pins': 1.6x the worst ATE and error, two thirds
+# of the fewest tracks.
+PIN_COMPAT = {
+    "sfmrunner": dict(ate_over_extent=0.253, reproj_px=0.489, min_tracks=2022),
+    "mixed": dict(ate_over_extent=0.195, reproj_px=0.601, min_tracks=1886),
+}
+COMPAT_LAUNCHES = {
+    "naive_sift": {"harris_response_fused": 1, "match_top2_fused": 0},
+    "scale_rot_inv_sift": {"harris_response_fused": 3, "match_top2_fused": 0},
+    "nn_ratio_matcher": {"harris_response_fused": 0, "match_top2_fused": 1},
+    "feature_runner": {"harris_response_fused": 6, "match_top2_fused": 1},
+    "sfmrunner": {"harris_response_fused": 3, "match_top2_fused": 1},
+    "mixed": {"harris_response_fused": 30, "match_top2_fused": 1},
+    "two_image": {"harris_response_fused": 3, "match_top2_fused": 1},
+}
+#   two_view (the compat chain on the slice phase's pair at the bench widths,
+#     RANSAC seeds 0-8: find_inliers, then ransac_camera_motion on its
+#     inliers): F inliers 471-485; canonical base rotation error 0.07-0.45
+#     deg, translation direction 2.5-21.6 deg; base at view 1's true pose
+#     0.07-0.76 deg, 6.0-21.6 deg, 0.00-0.51 deg from the canonical pose;
+#     triangulated inliers 0.19-0.91 px; PnPRansac and PnP on them 0.003-0.097
+#     deg and 0.7-6.1 deg (translation direction) from the RANSAC pose. On
+#     every match instead of the F inliers, ransac_camera_motion's
+#     min_cheirality_frac=1.0 finds no hypothesis with every match in front
+#     and falls back to the most points in front: 8.5-49.9 deg in JAX too,
+#     so the phase filters first.
+# The poses keep the slice phase's pins (the canonical-to-base gap within
+# twice PIN_ROT_DEG); the F inliers 85% of JAX's fewest; PnP 1.6x JAX's
+# widest gaps.
+COMPAT_MIN_F_INLIERS = 400
+COMPAT_PNP_ROT_GAP_DEG = 0.16
+COMPAT_PNP_TDIR_GAP_DEG = 10.0
+COMPAT_TRI_RTOL = 1e-3
+
+
 def scale_cli_argv(seq: str, cache: str, *extra):
     """The scale phase's global ``reconstruct`` command line (both packages'
     CLIs take it)."""
@@ -643,6 +709,80 @@ def focal_observable_arrays(rng, focal_error: float = 1.06):
     K_wrong[1, 1] *= focal_error
     return (cam_params, X, np.array(obs_cam), np.array(obs_pt), np.array(obs_xy),
             np.stack([K_wrong] * C)), dict(cam_fixed=cam_fixed)
+
+
+def compat_sequence(out_dir: str):
+    """Write the bench sequence rendered at twice its size (720x960, f=1040,
+    texture patches of 17 px where the bench paints 9) as ``1.jpg..10.jpg``
+    into ``out_dir``: ``SFMRunner``'s fixed 0.5 prescale gives the engine the
+    bench's 360x480. Returns (K of the prescaled images, f=520; ground-truth
+    world-to-camera poses)."""
+    import numpy as np
+
+    mod = _render_module()
+    images, K, poses, _ = mod.render_sequence(
+        np.random.default_rng(7), num_views=COMPAT_VIEWS, num_points=600, img_hw=(720, 960),
+        patch=17, f=1040.0, step_t=(-0.12, 0.01, 0.02), step_r=(0.006, -0.015, 0.004),
+    )
+    mod.write_sequence(out_dir, images)
+    K_half = K.copy()
+    K_half[:2] *= 0.5
+    return K_half, poses
+
+
+def mixed_size_sequence(out_dir: str):
+    """The bench sequence with view 2 padded by ``MIXED_PAD`` px at the
+    bottom and right by edge replication (``tests/test_pipeline.py::
+    test_engine_mixed_image_shapes``), so its pixel coordinates and K stay
+    valid. Returns (K, ground-truth poses)."""
+    import numpy as np
+    from PIL import Image
+
+    K, poses = bench_sequence(out_dir)
+    path = os.path.join(out_dir, "2.jpg")
+    with Image.open(path) as im:
+        arr = np.asarray(im)
+    arr = np.pad(arr, ((0, MIXED_PAD), (0, MIXED_PAD), (0, 0)), mode="edge")
+    Image.fromarray(arr).save(path, quality=95)
+    return K, poses
+
+
+def two_image_sequence(out_dir: str):
+    """Views 1 and 2 of the bench scene (the slice phase's pair,
+    ``bench_pair``) as ``1.jpg`` and ``2.jpg`` in ``out_dir``; returns (K,
+    ground-truth relative rotation, unit translation)."""
+    import numpy as np
+
+    mod = _render_module()
+    images, K, poses, _ = mod.render_sequence(
+        np.random.default_rng(7), num_views=10, num_points=600, img_hw=(360, 480), f=520.0,
+        step_t=(-0.12, 0.01, 0.02), step_r=(0.006, -0.015, 0.004),
+    )
+    mod.write_sequence(out_dir, images[1:3])
+    (R1, t1), (R2, t2) = poses[1], poses[2]
+    R = R2 @ R1.T
+    t = t2 - R @ t1
+    return K, R, t / np.linalg.norm(t)
+
+
+def compat_config(seed: int = 5):
+    """``SFMRunner``'s configuration (``compat.py``) at the bench extractor
+    settings and ``match_threshold=0.85``, in the port's config classes."""
+    from sfmfromscratch_tpu_torch.config import (
+        BundleAdjustConfig,
+        ExtractorConfig,
+        MatcherConfig,
+        PipelineConfig,
+        RansacConfig,
+    )
+
+    ecfg = ExtractorConfig.from_params_dict(BENCH_EXTRACTOR)
+    return PipelineConfig(
+        extractor=ecfg, matcher=MatcherConfig(ratio_threshold=0.85,
+                                              max_matches=ecfg.num_interest_points),
+        ransac=RansacConfig(), ba=BundleAdjustConfig(), scale_factor=0.5, dist_threshold=5.0,
+        seed=seed,
+    )
 
 
 def host_cli_argv(seq: str, cache: str, out: str):
@@ -769,6 +909,8 @@ def harris_phase(dev, peaks):
                                 "327x436, 297x396"),
         mesh_path=_path(mesh, f"mesh engine run, per rank: 3 launches, B={10 // MESH_RANKS} at "
                               "360x480, 327x436, 297x396"),
+        compat_path=_path(two_view[:1], "compat NaiveSIFT: one launch, B=1 at 360x480 "
+                                        "(ScaleRotInvSIFT: the two_view row's 3 launches per image)"),
     )
 
 
@@ -929,6 +1071,8 @@ def match_phase(dev, peaks):
             mesh_path=_path([shard], "mesh tp_match, per rank: one launch on the rank's shard, "
                             "B=1, 2499 x 1250 x 128 (the mesh engine and global runs launch "
                             "the engine's and the global run's shapes on every rank)", path_keys),
+            compat_path=_path([two_view], "compat NNRatioFeatureMatcher: one launch, B=1, "
+                              "2499 x 2499 x 128", path_keys),
         ))
     return kernels
 
@@ -1153,7 +1297,8 @@ def engine_phase(dev):
     _check(abs(cpu_e1 - e1) <= BA_FINAL_RTOL * e1, f"BA final error card {e1} vs CPU {cpu_e1}")
     _check(cold_e1 == e1, f"BA final error not reproducible on the card: cold {cold_e1}, warm {e1}")
     engine_ba = dict(problem=prob_cpu, points=eng.ba_result.points.cpu().numpy(), e1=e1,
-                     kw=dict(kw, max_iters=b.max_lm_iters))
+                     kw=dict(kw, max_iters=b.max_lm_iters), cameras=cams, tracks=tracks,
+                     observations=eng.map.num_observations)
     return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16}), engine_ba
 
 
@@ -1202,10 +1347,19 @@ def global_phase(dev):
     import numpy as np
     import torch
 
+    from sfmfromscratch_tpu_torch.native import bindings as NB
+    from sfmfromscratch_tpu_torch.pipeline import global_sfm as G
     from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
 
     cfg = engine_config()
     n = GLOBAL_VIEWS
+    track_calls = []
+
+    def recording_build_tracks(ea, eb, num_nodes, node_image=None):
+        out = NB.build_tracks(ea, eb, num_nodes, node_image=node_image)
+        track_calls.append(((ea, eb, num_nodes, node_image), out))
+        return out
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_global_") as seq:
         K, gt = orbit_sequence(seq, n, 4.0)
         t0 = time.perf_counter()
@@ -1213,11 +1367,21 @@ def global_phase(dev):
         torch.cuda.synchronize()
         cold_s = time.perf_counter() - t0
         _zero_launch_counts()
-        t0 = time.perf_counter()
-        eng = GlobalSfmEngine(seq, n, config=cfg, single_K=K, device=dev)
-        torch.cuda.synchronize()
-        warm_s = time.perf_counter() - t0
+        G.build_tracks = recording_build_tracks   # the C++ union-find, its edges kept
+        try:
+            t0 = time.perf_counter()
+            eng = GlobalSfmEngine(seq, n, config=cfg, single_K=K, device=dev)
+            torch.cuda.synchronize()
+            warm_s = time.perf_counter() - t0
+        finally:
+            G.build_tracks = NB.build_tracks
         launches = _launch_counts()
+    # The C++ tracks against the numpy union-find on the same edges.
+    _check(len(track_calls) == 1, f"build_tracks called {len(track_calls)} times, want 1")
+    (args, (ids, num_tracks, valid)), = track_calls
+    ids_plain, num_plain, valid_plain = NB.build_tracks_plain(*args)
+    native_tracks = NB.native_available() and num_tracks == num_plain \
+        and np.array_equal(ids, ids_plain) and np.array_equal(valid, valid_plain)
 
     cams = len(eng.global_poses)
     ate, extent = trajectory_error(eng.global_poses, gt, first_image=1)
@@ -1232,6 +1396,7 @@ def global_phase(dev):
             "ate": ate, "extent": extent, "ate_over_extent": ate / extent,
             "reproj_before_px": e0, "reproj_after_px": e1, "tracks": eng.map.num_tracks,
             "tracks_3plus": tracks_3, "observations": eng.map.num_observations,
+            "native_tracks": bool(native_tracks), "union_find_tracks": [num_tracks, num_plain],
             "edges": len(eng._edges), "live_edges": int((eng._edge_w > 0).sum()),
             "warnings": eng.warnings, "filter_hyps_used": np.asarray(eng.filter_hyps_used).tolist(),
             "ba_iterations_last_round": eng.ba_result.iterations_used,
@@ -1243,6 +1408,7 @@ def global_phase(dev):
                      "reproj_px": PIN_GLOBAL_REPROJ_PX, "min_tracks": PIN_GLOBAL_MIN_TRACKS,
                      "min_tracks_3plus": PIN_GLOBAL_MIN_TRACKS_3, "launches": want}})
     _check(launches == want, f"global launches {launches} != {want}")
+    _check(native_tracks, f"C++ tracks {num_tracks} differ from the numpy union-find {num_plain}")
     _check(cams == PIN_GLOBAL_CAMERAS, f"{cams} cameras, want {PIN_GLOBAL_CAMERAS}")
     _check(bool(np.allclose(np.hstack(eng.global_poses[0]), 0.0, atol=1e-5)),
            "camera 0 is not the identity")
@@ -1925,6 +2091,263 @@ def extractors_phase(dev, peaks):
     return launches, d256
 
 
+def _kp_desc_agreement(card, cpu):
+    """Keypoint Jaccard of two (x, y) keypoint lists and the share of the
+    shared keypoints' descriptor rows within DESC_ATOL, for the compat
+    extractors' outputs (numpy, valid keypoints only)."""
+    import numpy as np
+
+    (xg, yg, dg), (xc, yc, dc) = card, cpu
+    a = {(int(x), int(y)): r for r, (x, y) in enumerate(zip(xg, yg))}
+    b = {(int(x), int(y)): r for r, (x, y) in enumerate(zip(xc, yc))}
+    shared = sorted(set(a) & set(b))
+    diff = np.abs(dg[[a[p] for p in shared]] - dc[[b[p] for p in shared]]).max(-1)
+    return len(shared) / max(len(set(a) | set(b)), 1), float((diff <= DESC_ATOL).mean())
+
+
+def compat_phase(dev, engine_ba):
+    """The reference's class API (``compat.py``) and the engine's odd inputs
+    on the card at the bench widths, each run's launches counted:
+
+    1. ``NaiveSIFT`` and ``ScaleRotInvSIFT`` on bench view 1 (360x480), card
+       against CPU, and ``ScaleRotInvSIFT`` on view 2;
+    2. ``NNRatioFeatureMatcher`` on the two views' descriptors, card against
+       the CPU's whole chain; the compat ``FeatureRunner`` on the two views;
+    3. ``find_inliers`` on those matches, ``CameraPose.ransac_camera_motion``
+       on its inliers with the canonical base and with view 1's true pose as
+       the base, ``triangulate_points`` and
+       ``non_linear_triangulation``, ``PnPRansac`` and ``PnP`` on the
+       triangulated inliers, card against CPU on the same uniforms;
+    4. ``BundleAdjustment.sparse_bundle_adjustment`` on the engine phase's
+       BA problem (unpadded), card against CPU;
+    5. ``SFMRunner`` on the bench sequence rendered at 720x960 (f=1040);
+    6. ``SfmEngine`` on the bench sequence with view 2 padded by 16 px;
+    7. ``SfmEngine(max_img=2)`` on the slice phase's pair;
+    8. an ``AsyncCheckpointer`` round trip of the mixed-size run's state.
+
+    Returns the launches per run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch import compat
+    from sfmfromscratch_tpu_torch.ops.lie import so3_exp
+    from sfmfromscratch_tpu_torch.pipeline.checkpoint import AsyncCheckpointer
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    t_phase = time.perf_counter()
+    launches, row = {}, {"phase": "compat"}
+
+    def counted(name, fn):
+        _zero_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches[name] = _launch_counts()
+        return out
+
+    def check_launches(name):
+        want = dict(COMPAT_LAUNCHES[name], **{"match_top2_fused(bf16=True)": 0})
+        _check(launches[name] == want, f"compat {name} launches {launches[name]} != {want}")
+
+    # 1-2. Extractors and the matcher on the bench pair (gray views).
+    mod = _render_module()
+    images, K, poses, _ = mod.render_sequence(
+        np.random.default_rng(7), num_views=10, num_points=600, img_hw=(360, 480), f=520.0,
+        step_t=(-0.12, 0.01, 0.02), step_r=(0.006, -0.015, 0.004))
+    v1, v2 = (np.asarray(im, np.float32) for im in images[1:3])
+    _, _, _, R_gt, t_gt = bench_pair()
+    params = dict(BENCH_EXTRACTOR)
+
+    def extract(cls, img, device):
+        ext = getattr(compat, cls)(img, params, device=device)
+        x, y = ext.detect_keypoints()
+        return x, y, ext.extract_descriptors()
+
+    naive = counted("naive_sift", lambda: extract("NaiveSIFT", v1, dev))
+    sriv1 = counted("scale_rot_inv_sift", lambda: extract("ScaleRotInvSIFT", v1, dev))
+    sriv2 = extract("ScaleRotInvSIFT", v2, dev)
+    agree = {"naive_sift": _kp_desc_agreement(naive, extract("NaiveSIFT", v1, "cpu"))}
+    sriv1_cpu = extract("ScaleRotInvSIFT", v1, "cpu")
+    sriv2_cpu = extract("ScaleRotInvSIFT", v2, "cpu")
+    agree["scale_rot_inv_sift"] = _kp_desc_agreement(sriv1, sriv1_cpu)
+    matcher = compat.NNRatioFeatureMatcher(BENCH_MATCHER["ratio_threshold"], device=dev)
+    m, conf = counted("nn_ratio_matcher",
+                      lambda: matcher.match_features_ratio_test(sriv1[2], sriv2[2]))
+    m_cpu, _ = compat.NNRatioFeatureMatcher(BENCH_MATCHER["ratio_threshold"], device="cpu"
+                                            ).match_features_ratio_test(sriv1_cpu[2], sriv2_cpu[2])
+    sm, sc = {tuple(r) for r in m.tolist()}, {tuple(r) for r in m_cpu.tolist()}
+    match_jaccard = len(sm & sc) / max(len(sm | sc), 1)
+    fr = counted("feature_runner", lambda: compat.FeatureRunner(
+        np.stack([v1] * 3, -1), np.stack([v2] * 3, -1), scale_factor=1.0,
+        extractor_params=params, match_threshold=BENCH_MATCHER["ratio_threshold"], device=dev))
+    row.update(keypoints={"naive_sift": len(naive[0]), "view1": len(sriv1[0]),
+                          "view2": len(sriv2[0])},
+               card_vs_cpu={k: {"keypoint_jaccard": a, "descriptor_rows_within_atol": d}
+                            for k, (a, d) in agree.items()},
+               matcher_shape=[1, len(sriv1[2]), len(sriv2[2]), 128], matches=len(m),
+               matches_cpu=len(m_cpu), match_jaccard=match_jaccard,
+               feature_runner_matches=int(fr.matches.mask.sum()))
+    for name, (jac, share) in agree.items():
+        _check(jac >= KP_JACCARD, f"compat {name} keypoint agreement {jac} < {KP_JACCARD}")
+        _check(share >= DESC_SHARE, f"compat {name} descriptor agreement {share} < {DESC_SHARE}")
+    _check(match_jaccard >= MATCH_JACCARD, f"compat match agreement {match_jaccard}")
+    _check(bool(np.all(np.diff(conf) >= -1e-6)), "compat matches not sorted best-first")
+    for name in ("naive_sift", "scale_rot_inv_sift", "nn_ratio_matcher", "feature_runner"):
+        check_launches(name)
+
+    # 3. Two-view geometry on the matches (integer keypoint pixels).
+    p1 = np.stack([sriv1[0][m[:, 0]], sriv1[1][m[:, 0]]], 1).astype(np.float64)
+    p2 = np.stack([sriv2[0][m[:, 1]], sriv2[1][m[:, 1]]], 1).astype(np.float64)
+    hyp = 5967
+    u8 = torch.rand((hyp, 8), generator=torch.Generator().manual_seed(BENCH_SEED))
+    u3 = torch.rand((100, 3), generator=torch.Generator().manual_seed(BENCH_SEED))
+    R1_gt, t1_gt = poses[1]
+    geo = {}
+    for dv in (dev, "cpu"):
+        out = {"inliers": compat.CameraPose.find_inliers(p1, p2, max_iterations=hyp, device=dv,
+                                                         uniforms=u8)}
+        cp = compat.CameraPose(*out["inliers"], K, K, device=dv)
+        out["canonical"] = cp.ransac_camera_motion(np.eye(3), np.zeros(3), max_iterations=hyp,
+                                                   uniforms=u8)
+        out["base"] = cp.ransac_camera_motion(R1_gt, t1_gt, max_iterations=hyp, uniforms=u8)
+        R, t, in1, in2 = out["canonical"]
+        P1 = compat.CameraPose.calculate_projection_matrix(np.eye(3), np.zeros(3), K)
+        P2 = compat.CameraPose.calculate_projection_matrix(R, t, K)
+        X = compat.CameraPose.triangulate_points(in1, in2, P1, P2, device=dv)
+        out["X"] = compat.CameraPose.non_linear_triangulation(X, in1, in2, P1, P2, device=dv)
+        out["reproj"] = compat.print_reprojection_error(out["X"], in1, in2, P1, P2, device=dv)
+        out["pnp_ransac"] = compat.PnPRansac(out["X"], in2, K=K, device=dv, uniforms=u3)
+        out["pnp"] = compat.PnP(out["X"], in2, K=K, device=dv)
+        geo["card" if dv == dev else "cpu"] = out
+    g, c = geo["card"], geo["cpu"]
+    R, t, in1, _ = g["canonical"]
+    rot, tdir = pose_errors(R, t, R_gt, t_gt)
+    rot_b, tdir_b = pose_errors(g["base"][0], g["base"][1], R_gt, t_gt)
+    tri_err = float(np.abs(g["X"] - c["X"]).max() / np.abs(c["X"]).max())
+    pr, pp = g["pnp_ransac"], g["pnp"]
+    row.update(ransac={"rot_err_deg": rot, "t_err_deg": tdir, "inliers": len(in1),
+                       "base_rot_err_deg": rot_b, "base_t_err_deg": tdir_b,
+                       "base_inliers": len(g["base"][2]),
+                       "canonical_vs_base_rot_deg": _rot_gap_deg(R, g["base"][0]),
+                       "card_vs_cpu_rot_deg": _rot_gap_deg(R, c["canonical"][0]),
+                       "card_vs_cpu_base_rot_deg": _rot_gap_deg(g["base"][0], c["base"][0]),
+                       "f_inliers": len(g["inliers"][0]), "f_inliers_cpu": len(c["inliers"][0])},
+               triangulation={"points": len(g["X"]), "reproj_px": g["reproj"],
+                              "card_vs_cpu_rel": tri_err},
+               pnp={"ransac_ok": pr.R is not None, "pnp_ok": pp.R is not None})
+    _check(rot <= PIN_ROT_DEG and tdir <= PIN_TDIR_DEG, f"compat canonical pose {rot}, {tdir} deg")
+    _check(rot_b <= PIN_ROT_DEG and tdir_b <= PIN_TDIR_DEG,
+           f"compat pose on a non-canonical base {rot_b}, {tdir_b} deg")
+    _check(_rot_gap_deg(R, g["base"][0]) <= 2 * PIN_ROT_DEG, "compat canonical vs base gap")
+    for key in ("canonical", "base"):
+        _check(_rot_gap_deg(g[key][0], c[key][0]) <= RANSAC_ROT_GAP_DEG,
+               f"compat {key} RANSAC card vs CPU rotation gap")
+        _check(abs(len(g[key][2]) - len(c[key][2])) <= RANSAC_INLIER_GAP,
+               f"compat {key} RANSAC card vs CPU inlier gap")
+    _check(abs(len(g["inliers"][0]) - len(c["inliers"][0])) <= RANSAC_INLIER_GAP,
+           "compat find_inliers card vs CPU gap")
+    _check(len(g["inliers"][0]) >= COMPAT_MIN_F_INLIERS,
+           f"compat find_inliers {len(g['inliers'][0])} < {COMPAT_MIN_F_INLIERS}")
+    _check(bool(np.isfinite(g["X"]).all()) and tri_err <= COMPAT_TRI_RTOL,
+           f"compat triangulation card vs CPU {tri_err}")
+    _check(g["reproj"] <= PIN_REPROJ_PX, f"compat reprojection {g['reproj']} px")
+    _check(pr.R is not None and pp.R is not None, "compat PnP found no pose")
+    for name, est in (("PnPRansac", pr), ("PnP", pp)):
+        gap = _rot_gap_deg(est.R, R)
+        tgap = pose_errors(est.R, est.t.ravel(), R, t)[1]
+        row["pnp"][name] = {"rot_gap_deg": gap, "tdir_gap_deg": tgap}
+        _check(gap <= COMPAT_PNP_ROT_GAP_DEG and tgap <= COMPAT_PNP_TDIR_GAP_DEG,
+               f"compat {name} vs the RANSAC pose: {gap}, {tgap} deg")
+
+    # 4. BundleAdjustment on the engine phase's problem, unpadded.
+    pb, O = engine_ba["problem"], engine_ba["observations"]
+    C, P = engine_ba["cameras"], engine_ba["tracks"]
+    args = dict(num_cameras=C, num_points=P, camera_indices=pb.obs_cam[:O].numpy(),
+                point_indices=pb.obs_pt[:O].numpy(), points_2d=pb.obs_xy[:O].numpy(),
+                camera_params=pb.cam_params[:C].numpy(), points_3d=pb.points[:P].numpy(),
+                K_list=pb.K[:C].numpy())
+    errs = {}
+    for dv in (dev, "cpu"):
+        ba = compat.BundleAdjustment(**args, device=dv)
+        t0 = time.perf_counter()
+        cams, pts = ba.sparse_bundle_adjustment()
+        r = ba.compute_residuals(np.hstack([cams.ravel(), pts.ravel()]), C, P,
+                                 args["camera_indices"], args["point_indices"],
+                                 args["points_2d"], args["K_list"]).reshape(-1, 2)
+        errs["card" if dv == dev else "cpu"] = (float(np.linalg.norm(r, axis=1).mean()),
+                                                time.perf_counter() - t0)
+    (e_card, s_card), (e_cpu, s_cpu) = errs["card"], errs["cpu"]
+    row["bundle_adjustment"] = {"cameras": C, "points": P, "observations": O,
+                                "reproj_card_px": e_card, "reproj_cpu_px": e_cpu,
+                                "card_s": s_card, "cpu_s": s_cpu}
+    _check(bool(np.isfinite([e_card, e_cpu]).all()), "compat BA non-finite error")
+    _check(abs(e_card - e_cpu) <= BA_FINAL_RTOL * e_cpu, f"compat BA card {e_card} vs CPU {e_cpu}")
+
+    # 5-8. SFMRunner, mixed sizes, two images, the checkpointer.
+    cfg = engine_config()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_compat_") as tmp:
+        runs = {}
+        for name, make in (("sfmrunner", compat_sequence), ("mixed", mixed_size_sequence)):
+            seq = os.path.join(tmp, name)
+            os.makedirs(seq)
+            Kq, gt = make(seq)
+            t0 = time.perf_counter()
+            if name == "sfmrunner":
+                eng = counted(name, lambda: compat.SFMRunner(
+                    seq, COMPAT_VIEWS, params, match_threshold=BENCH_MATCHER["ratio_threshold"],
+                    single_K=Kq, device=dev).engine)
+            else:
+                eng = counted(name, lambda: SfmEngine(seq, 10, config=cfg, single_K=Kq,
+                                                      device=dev))
+            ate, extent = trajectory_error(eng.global_poses, gt)
+            e0, e1 = eng.errors_before_after_ba
+            runs[name] = eng
+            row[name] = {"wall_s": time.perf_counter() - t0, "cameras": len(eng.global_poses),
+                         "ate_over_extent": ate / extent, "reproj_before_px": e0,
+                         "reproj_after_px": e1, "tracks": eng.map.num_tracks,
+                         "launches": launches[name], "pins": PIN_COMPAT[name]}
+            pins = PIN_COMPAT[name]
+            _check(len(eng.global_poses) == PIN_ENGINE_CAMERAS, f"compat {name} cameras")
+            _check(bool(np.isfinite([ate, e0, e1]).all()), f"compat {name} non-finite")
+            _check(ate / extent <= pins["ate_over_extent"], f"compat {name} ATE {ate / extent}")
+            _check(e1 <= pins["reproj_px"], f"compat {name} reprojection {e1} px")
+            _check(eng.map.num_tracks >= pins["min_tracks"], f"compat {name} tracks")
+            check_launches(name)
+        seq = os.path.join(tmp, "two")
+        os.makedirs(seq)
+        K2, R2_gt, t2_gt = two_image_sequence(seq)
+        two = counted("two_image", lambda: SfmEngine(seq, 2, config=cfg, single_K=K2, device=dev))
+        rv, tv = two.global_poses[0]
+        R2 = so3_exp(torch.as_tensor(rv, dtype=torch.float32)).numpy()
+        rot2, tdir2 = pose_errors(R2, tv, R2_gt, t2_gt)
+        row["two_image"] = {"cameras": len(two.global_poses), "rot_err_deg": rot2,
+                            "t_err_deg": tdir2, "tracks": two.map.num_tracks,
+                            "reproj_after_px": two.errors_before_after_ba[1],
+                            "launches": launches["two_image"]}
+        _check(len(two.global_poses) == 1, "compat two-image run: want one pose")
+        _check(rot2 <= PIN_ROT_DEG and tdir2 <= PIN_TDIR_DEG,
+               f"compat two-image pose {rot2}, {tdir2} deg")
+        check_launches("two_image")
+
+        src = runs["mixed"]
+        ck = AsyncCheckpointer(os.path.join(tmp, "ckpt"))
+        ck.save(src, next_frame=11, step=1)
+        ck.wait()
+        back = SfmEngine(os.path.join(tmp, "mixed"), 10, config=cfg, device=dev, auto_run=False)
+        nxt = ck.restore(back, step=1)
+        same = (nxt == 11 and np.array_equal(back.map.points(), src.map.points())
+                and all(np.array_equal(a, b) for a, b in zip(back.map.observations(),
+                                                               src.map.observations()))
+                and np.array_equal(np.hstack(back.global_poses), np.hstack(src.global_poses))
+                and torch.equal(back._generator.get_state(), src._generator.get_state()))
+        row["async_checkpointer"] = {"round_trip": bool(same), "tracks": back.map.num_tracks}
+        _check(same, "compat AsyncCheckpointer round trip changed the state")
+    row.update(launches=launches, wall_s=time.perf_counter() - t_phase)
+    _print(row)
+    return launches
+
+
 def _run_rank_groups(groups, work, device, limit_s):
     """Start every group of ranks at once, each ``(target, world, args)``
     running ``target(rank, device, *args)`` in ``world`` spawned processes
@@ -2398,6 +2821,7 @@ def main(argv) -> int:
         scale = scale_phase(dev)
         extractors, d256 = extractors_phase(dev, peaks)
         mesh = mesh_phase(dev, engine_ba)
+        compat_runs = compat_phase(dev, engine_ba)
         kernels[1]["superpoint_d256"] = d256
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
@@ -2408,6 +2832,7 @@ def main(argv) -> int:
             k["launches_scale"] = scale.get(k["name"], 0)
             k["launches_extractors"] = extractors.get(k["name"], {})
             k["launches_mesh_per_rank"] = {run: n.get(k["name"], 0) for run, n in mesh.items()}
+            k["launches_compat"] = {run: n.get(k["name"], 0) for run, n in compat_runs.items()}
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -12,8 +12,10 @@ Every ``reconstruct`` flag of the JAX CLI runs: ``--refine-focal`` on both
 pipelines, and on ``--pipeline global`` ``--keyframe-step k|auto`` with
 ``--keyframe-flow-px``, ``--pair-mode retrieval|both`` with
 ``--retrieval-k``, and ``--stream-ba-window`` with
-``--stream-ba-block-cams``. ``show`` needs the 3-D viewer, which is not
-ported: it exits non-zero and says so.
+``--stream-ba-block-cams``. ``show`` opens the 3-D viewer (``viz/``) on a
+saved model, or with ``--save-png`` renders it headless to a PNG.
+
+    python -m sfmfromscratch_tpu_torch.cli show model --output-dir output --save-png m.png
 """
 
 from __future__ import annotations
@@ -106,8 +108,7 @@ def main(argv=None) -> int:
                           "'cpu' runs on the CPU)")
     _add_extractor_flags(rec)
 
-    show = sub.add_parser("show", help="load a saved model and open the 3-D viewer "
-                                       "(not ported)")
+    show = sub.add_parser("show", help="load a saved model and open the 3-D viewer")
     show.add_argument("model_name")
     show.add_argument("--output-dir", default="output")
     show.add_argument("--save-png", default=None, help="render headless to PNG")
@@ -128,9 +129,20 @@ def main(argv=None) -> int:
         return 0
 
     if args.cmd == "show":
-        print("show: the 3-D viewer (viz/) is not ported yet; load the model with "
-              "SfmEngine.load(name, output_dir, show=False)", file=sys.stderr)
-        return 2
+        from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+        if args.save_png:
+            import matplotlib
+
+            matplotlib.use("Agg", force=True)
+            from sfmfromscratch_tpu_torch.viz.scatter3d import V3D
+
+            data = SfmEngine.load(args.model_name, output_dir=args.output_dir, show=False)
+            V3D(data["p3d"], data["frame_idx"], data["pt_idx"], show=False,
+                save_path=args.save_png)
+        else:
+            SfmEngine.load(args.model_name, output_dir=args.output_dir, show=True)
+        return 0
 
     # reconstruct
     from sfmfromscratch_tpu_torch.config import (

@@ -94,6 +94,8 @@ def ransac_essential_pose(
     min_cheirality_frac: float = 1.0,
     cheirality_subset: int = 1024,
     uniforms: Optional[torch.Tensor] = None,
+    R_base: Optional[torch.Tensor] = None,
+    t_base: Optional[torch.Tensor] = None,
 ) -> RansacPoseResult:
     """Relative-pose RANSAC (reference SFM.py:38-103), fully vectorized.
 
@@ -102,7 +104,12 @@ def ransac_essential_pose(
     hypothesis is strict when that count reaches ``min_cheirality_frac`` of
     the valid points of the cheirality subset. Strict hypotheses are ranked
     by MSAC score; with none strict, the max-cheirality hypothesis wins. Two
-    rounds of locally-optimized refit follow. The base camera is canonical.
+    rounds of locally-optimized refit follow.
+
+    The base camera is canonical unless ``R_base``/``t_base`` are given
+    (ransac.py:318-361): the base pose then enters only the cheirality
+    check, which tests the candidate as R' = R_cand R_base^T,
+    t' = t_cand - R' t_base; the candidate (R_cand, t_cand) is returned.
 
     ``uniforms`` (B, s) replaces the draw from ``generator``.
     """
@@ -124,7 +131,7 @@ def ransac_essential_pose(
     ns = min(cheirality_subset, n)
     p1_s, p2_s, mask_s = p1[:ns], p2[:ns], mask[:ns]
     n_valid_s = torch.sum(mask_s)
-    z1, z2 = two_view_depths(Rc, tc, p1_s, p2_s, K1, K2)     # (B, 4, ns)
+    z1, z2 = two_view_depths(*_che_pose(Rc, tc, R_base, t_base), p1_s, p2_s, K1, K2)  # (B, 4, ns)
     eps = 1e-6
     front = (z1 > eps) & (z2 > eps) & mask_s[None, None, :]
     che_count = torch.sum(front, dim=-1)                     # (B, 4)
@@ -145,7 +152,18 @@ def ransac_essential_pose(
 
     F_b, inl_b, _ = _lo_refit(F[best], inl[best], msac[best], p1, p2, mask, threshold, rounds=2)
     return _pose_from_refit(F_b, inl_b, p1_s, p2_s, mask_s, K1, K2,
-                            (min_cheirality_frac * n_valid_s).to(torch.int64))
+                            (min_cheirality_frac * n_valid_s).to(torch.int64), R_base, t_base)
+
+
+def _che_pose(Rc: torch.Tensor, tc: torch.Tensor, R_base: Optional[torch.Tensor],
+              t_base: Optional[torch.Tensor]):
+    """The pose the depth test sees for candidates (Rc, tc): the candidate
+    itself for a canonical base, else R' = Rc R_base^T, t' = tc - R' t_base."""
+    if R_base is None:
+        return Rc, tc
+    Rb = R_base.to(Rc)
+    Rr = Rc @ Rb.T
+    return Rr, tc - torch.einsum("...ij,j->...i", Rr, t_base.to(tc))
 
 
 @mm_f32
@@ -199,17 +217,20 @@ def _lo_refit(F_b, inl_b, msac_b, p1, p2, mask, threshold: float, rounds: int):
     return F_b, inl_b, msac_b
 
 
-def _pose_from_refit(F_b, inl_b, p1_s, p2_s, mask_s, K1, K2, min_strict) -> RansacPoseResult:
+def _pose_from_refit(F_b, inl_b, p1_s, p2_s, mask_s, K1, K2, min_strict,
+                     R_base=None, t_base=None) -> RansacPoseResult:
     """Decompose the refit F's essential matrix and re-select the cheirality
     candidate (the refit can change the pose, not just the inlier set).
-    Leading lane dimensions are allowed, on K too."""
+    Leading lane dimensions are allowed, on K too; a base pose (``_che_pose``)
+    is not."""
     eps = 1e-6
     E_f = essential_from_fundamental(F_b[..., None, :, :], K1[..., None, :, :],
                                      K2[..., None, :, :])
     R1f, R2f, tf = decompose_essential(E_f)
     Rcf = torch.cat([R1f, R1f, R2f, R2f], dim=-3)             # (..., 4, 3, 3)
     tcf = torch.cat([tf, -tf, tf, -tf], dim=-2)               # (..., 4, 3)
-    z1f, z2f = two_view_depths(Rcf, tcf, p1_s[..., None, :, :], p2_s[..., None, :, :],
+    z1f, z2f = two_view_depths(*_che_pose(Rcf, tcf, R_base, t_base),
+                               p1_s[..., None, :, :], p2_s[..., None, :, :],
                                K1[..., None, :, :], K2[..., None, :, :])   # (..., 4, ns)
     front_f = (z1f > eps) & (z2f > eps) & mask_s[..., None, :]
     che_f = torch.sum(front_f, dim=-1)                        # (..., 4)

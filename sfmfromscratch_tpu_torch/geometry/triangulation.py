@@ -10,6 +10,7 @@ from typing import Optional, Tuple
 import torch
 
 from sfmfromscratch_tpu_torch.ba.schur import segment_sum
+from sfmfromscratch_tpu_torch.geometry.epipolar import hartley_normalize
 from sfmfromscratch_tpu_torch.ops.smallsvd import nullvec_lstsq
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
 
@@ -36,6 +37,19 @@ def triangulate_dlt(p1: torch.Tensor, p2: torch.Tensor, P1: torch.Tensor, P2: to
     w = X[..., 3:4]
     tiny = torch.where(w < 0, -1e-12, 1e-12)
     return X[..., :3] / torch.where(torch.abs(w) < 1e-12, tiny, w)
+
+
+@mm_f32
+def triangulate_normalized(
+    p1: torch.Tensor, p2: torch.Tensor, P1: torch.Tensor, P2: torch.Tensor,
+    mask: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Hartley-normalized DLT (``triangulation.py:61-70``): normalize the
+    observations, transform the projections by the same similarities, then
+    ``triangulate_dlt`` (reference ``triangulate_points``, SFM.py:291-305)."""
+    p1n, T1 = hartley_normalize(p1, mask)
+    p2n, T2 = hartley_normalize(p2, mask)
+    return triangulate_dlt(p1n[..., :2], p2n[..., :2], T1 @ P1, T2 @ P2)
 
 
 def _residuals_jac_batched(X: torch.Tensor, p: torch.Tensor, P: torch.Tensor):

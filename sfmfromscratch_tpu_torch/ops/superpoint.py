@@ -5,8 +5,8 @@ The standard SuperPoint network (VGG-style shared encoder, a 65-way cell
 detector head, an L2-normalised descriptor head) as an ``nn.Module`` whose
 layers carry the MagicLeap checkpoint's names (``conv1a`` ... ``convDb``, each
 with ``.weight`` and ``.bias``), so ``superpoint_v1.pth`` loads with
-``load_state_dict``. The in-repo TinyPoint checkpoint is the JAX package's
-npz of flax kernels, read in place. ``SuperPointExtractor`` adapts the net
+``load_state_dict``. The TinyPoint checkpoint (``weights/``) is a byte-equal
+copy of the JAX package's npz of flax kernels. ``SuperPointExtractor`` adapts the net
 to the engines' fixed-capacity Features; ``make_hybrid_extractor`` keeps the
 TinyPoint detector and swaps in RootSIFT descriptors.
 
@@ -132,11 +132,11 @@ def load_flax_weights(path: str) -> SuperPointNet:
 
 
 def default_weights_path() -> Optional[str]:
-    """The JAX package's synthetically trained TinyPoint checkpoint
-    (``sfmfromscratch_tpu/weights/tinypoint_synth.npz``, read in place as a
-    data file), or None when it is absent."""
-    p = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", "..",
-                                     "sfmfromscratch_tpu", "weights", "tinypoint_synth.npz"))
+    """The synthetically trained TinyPoint checkpoint
+    (``weights/tinypoint_synth.npz`` of this package, a byte-equal copy of the
+    JAX package's), or None when it is absent."""
+    p = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "weights",
+                     "tinypoint_synth.npz")
     return p if os.path.exists(p) else None
 
 

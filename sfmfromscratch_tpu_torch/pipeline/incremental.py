@@ -82,6 +82,7 @@ from sfmfromscratch_tpu_torch.parallel.sharded_ba import bundle_adjust_sharded
 from sfmfromscratch_tpu_torch.pipeline.chain_refresh import averaging_refresh
 from sfmfromscratch_tpu_torch.pipeline.checkpoint import save_checkpoint
 from sfmfromscratch_tpu_torch.pipeline.frontend import (
+    extract_features,
     extract_features_batch,
     preprocess_image,
     preprocess_image_batch,
@@ -89,6 +90,7 @@ from sfmfromscratch_tpu_torch.pipeline.frontend import (
 from sfmfromscratch_tpu_torch.pipeline.tracks import MapStore
 from sfmfromscratch_tpu_torch.types import Features, Keypoints, PairGeometry
 from sfmfromscratch_tpu_torch.utils.device import resolve_device
+from sfmfromscratch_tpu_torch.utils.fetch import device_get_packed
 from sfmfromscratch_tpu_torch.utils.precision import f32_precision
 
 
@@ -103,20 +105,6 @@ def scatter_last(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> 
     winner = torch.full((n + 1,), -1, dtype=torch.int64, device=idx.device)
     winner = winner.scatter_reduce(0, idx.long(), rows, reduce="amax")[:n]
     return torch.where(winner >= 0, vals[winner.clamp_min(0)].to(table.dtype), table)
-
-
-def fetch_packed(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """One device-to-host copy for several tensors: each is flattened into a
-    float64 buffer (exact for float32, bool and integers below 2**53), and
-    the host cuts it back into numpy arrays of each tensor's shape and
-    dtype."""
-    flat = torch.cat([t.reshape(-1).to(torch.float64) for t in tensors]).cpu().numpy()
-    out, o = [], 0
-    for t in tensors:
-        dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
-        out.append(flat[o:o + t.numel()].reshape(tuple(t.shape)).astype(dtype))
-        o += t.numel()
-    return out
 
 
 def bootstrap(
@@ -256,6 +244,14 @@ def chain_scan(
     return rvecs, ts, oks, ninl, obs_track, obs_xy, points[:max_points], n_points
 
 
+def _stack_features(per: List[Features]) -> Features:
+    """Fixed-capacity Features of single images stacked on a leading image
+    axis."""
+    return Features(
+        keypoints=Keypoints(*(torch.stack(v) for v in zip(*(f.keypoints for f in per)))),
+        descriptors=torch.stack([f.descriptors for f in per]))
+
+
 class SfmEngine:
     """Incremental SfM over an ordered image sequence ``1.jpg..N.jpg`` under
     ``img_path`` (the reference CLI contract, Runner.py:134-141, 340-346).
@@ -302,9 +298,6 @@ class SfmEngine:
         for name, (value, allowed) in choices.items():
             if value not in allowed:
                 raise ValueError(f"{name} must be one of {allowed}, got {value!r}")
-        if max_img < 3:
-            raise NotImplementedError(
-                "the port's engine needs 3 images or more; reconstruct_two_view covers 2")
         self.img_path = img_path
         self.max_img = max_img
         self.config = config or PipelineConfig()
@@ -398,38 +391,51 @@ class SfmEngine:
     # ------------------------------------------------------------------ stages
 
     def _extract_all_features(self) -> Features:
-        """Features of every image, extracted once, with a leading image axis.
-        The built-in front end takes the decodes up as one uint8 stack and
-        runs them as one batch; a ``feature_extractor`` is called once per
-        image on its float grayscale (``incremental.py:518-522``), and its
-        fixed-capacity Features are stacked. On a mesh with a ``data`` axis
-        the built-in front end's batch shards by image
-        (``incremental.py:543-595``): padded with copies of the first image
-        to a multiple of the axis, each rank extracts its contiguous block and
-        the Features are all-gathered."""
+        """Features of every image, extracted once, with a leading image axis
+        (``incremental.py:488-632``). The built-in front end runs images of
+        one size as one batch, so the Harris kernel runs once per pyramid
+        level: the decodes go up as one uint8 stack, or, where the files
+        differ in mode (RGB and grayscale), each is preprocessed from float
+        on its own and the grays are stacked; preprocessing and extraction
+        stay separate steps, as in the JAX engine, whose fusion boundary
+        moves SIFT orientation ties. Images of different sizes (or a single
+        image) are extracted one by one and their fixed-capacity Features
+        stacked. A ``feature_extractor`` is called once per image on its
+        float grayscale (``incremental.py:518-522``). On a mesh with a
+        ``data`` axis the batch shards by image (``incremental.py:543-595``):
+        padded with copies of the first image to a multiple of the axis,
+        each rank extracts its contiguous block and the Features are
+        all-gathered."""
         t0 = time.perf_counter()
+        scale, dev = self.config.scale_factor, self.device
+        files = [self._image_file(i) for i in range(1, self.max_img + 1)]
         if self.feature_extractor is not None:
-            per = [self.feature_extractor(preprocess_image(
-                load_image(self._image_file(i)), self.config.scale_factor, self.device))
-                for i in range(1, self.max_img + 1)]
-            feats = Features(
-                keypoints=Keypoints(*(torch.stack(v) for v in zip(*(f.keypoints for f in per)))),
-                descriptors=torch.stack([f.descriptors for f in per]))
+            feats = _stack_features([
+                self.feature_extractor(preprocess_image(load_image(f), scale, dev))
+                for f in files])
         else:
-            raws = [load_image_u8(self._image_file(i)) for i in range(1, self.max_img + 1)]
-            if len({r.shape for r in raws}) != 1:
-                raise NotImplementedError("the port's engine takes images of one size and mode")
-            ax = mesh_axis(self.mesh, "data")
-            rank, size = (ax.rank, ax.size) if ax is not None else (0, 1)
-            per = -(-len(raws) // size)
-            block = [raws[i if i < len(raws) else 0] for i in range(rank * per, (rank + 1) * per)]
-            stacked = preprocess_image_batch(
-                torch.as_tensor(np.stack(block), device=self.device), self.config.scale_factor)
-            feats = extract_features_batch(stacked, self.config.extractor)
-            if ax is not None:
-                gather = lambda t: all_gather_cat(t, ax)[:self.max_img]
-                feats = Features(keypoints=Keypoints(*(gather(t) for t in feats.keypoints)),
-                                 descriptors=gather(feats.descriptors))
+            raws = [load_image_u8(f) for f in files]
+            if len({r.shape[:2] for r in raws}) == 1 and self.max_img > 1:
+                ax = mesh_axis(self.mesh, "data")
+                rank, size = (ax.rank, ax.size) if ax is not None else (0, 1)
+                per = -(-len(raws) // size)
+                block = [raws[i if i < len(raws) else 0] for i in range(rank * per, (rank + 1) * per)]
+                if len({r.shape for r in raws}) == 1:
+                    stacked = preprocess_image_batch(torch.as_tensor(np.stack(block), device=dev),
+                                                     scale)
+                else:
+                    stacked = torch.stack([
+                        preprocess_image(r.astype(np.float32) / 255.0, scale, dev) for r in block])
+                feats = extract_features_batch(stacked, self.config.extractor)
+                if ax is not None:
+                    gather = lambda t: all_gather_cat(t, ax)[:self.max_img]
+                    feats = Features(keypoints=Keypoints(*(gather(t) for t in feats.keypoints)),
+                                     descriptors=gather(feats.descriptors))
+            else:
+                feats = _stack_features([
+                    extract_features(preprocess_image(r.astype(np.float32) / 255.0, scale, dev),
+                                     self.config.extractor)
+                    for r in raws])
         cap = feats.keypoints.capacity
         self._kp_tracks = {i: np.full(cap, -1, dtype=np.int64) for i in range(1, self.max_img + 1)}
         self._stage_end("features", t0)
@@ -445,10 +451,11 @@ class SfmEngine:
                 and self.on_pose_failure == "raise")
 
     def _fused_front_eligible(self, feats: Features) -> bool:
-        """The fused front covers the scan chain over consecutive pairs with
-        no shard and no pair cache (``incremental.py:859-867``)."""
+        """The fused front covers the scan chain over three images or more,
+        consecutive pairs, no shard and no pair cache
+        (``incremental.py:859-867``)."""
         return (self._pair_shard is None and not self.pair_cache_dir
-                and self._use_scan_chain()
+                and self._use_scan_chain() and self.max_img >= 3
                 and self._candidate_pairs(feats) == [(i, i + 1) for i in range(1, self.max_img)])
 
     def _run_front(self, feats: Features) -> None:
@@ -692,7 +699,7 @@ class SfmEngine:
             rcfg.max_hypotheses() if rcfg.adaptive else self._num_hyp,
             rcfg.epipolar_threshold, stage_size=rcfg.stage_size, adaptive=rcfg.adaptive,
         )
-        inl_np, X_np, rvec_np, t_np = fetch_packed(inl, X, rvec, t)
+        inl_np, X_np, rvec_np, t_np = device_get_packed(inl, X, rvec, t)
         X_np = X_np.astype(np.float64)
         p2_np = np.asarray(pg.p2, np.float64)
         # Camera 0 of the BA problem observes through image 2 (the identity
@@ -706,9 +713,13 @@ class SfmEngine:
 
     def _chain_scan(self, P2: torch.Tensor) -> None:
         """The device scan chain on the staged path's pair geometry and
-        keypoint table (``incremental.py:1487-1557``)."""
+        keypoint table (``incremental.py:1487-1557``); with two images there
+        is no frame to chain."""
         t0 = time.perf_counter()
         pgs = [self.pair_geometry[(i, i + 1)] for i in range(2, self.max_img)]
+        if not pgs:
+            self._stage_end("chain", t0)
+            return
         stack = lambda f, dt=torch.float32: self._dev(np.stack([getattr(pg, f) for pg in pgs]), dt)
         max_points = self.config.max_points
         n0 = self.map.num_tracks
@@ -792,7 +803,7 @@ class SfmEngine:
                 None, self._dev(X_known), self._dev(sel, torch.bool), p1_t, p2_t, K2, P2,
                 self._pnp_hyp, rcfg.pnp_reproj_threshold, self._dev(new_sel, torch.bool),
                 uniforms=uniforms[i - 2])
-            ok, inliers, rvec, tvec, X_new_np, ok_new = fetch_packed(
+            ok, inliers, rvec, tvec, X_new_np, ok_new = device_get_packed(
                 ok, inl_t, rvec_t, t_t, X_new_t, ok_new_t)
 
             if not bool(ok) or sel.sum() < 6:
@@ -1030,10 +1041,13 @@ class SfmEngine:
         return export.save_colmap(self, out_dir)
 
     @staticmethod
-    def load(model_name: str, output_dir: str = "output", show: bool = False):
-        """Load a saved model as a dict of arrays. The 3-D viewer of the JAX
-        engine (``show=True``) is not ported."""
-        if show:
-            raise NotImplementedError("the 3-D viewer is not ported; call load(show=False)")
+    def load(model_name: str, output_dir: str = "output", show: bool = True):
+        """Load a saved model (reference Runner.py:403-416): with ``show`` the
+        3-D viewer on its points (a ``V3D``), else a dict of its arrays."""
         with np.load(os.path.join(output_dir, f"{model_name}.npz")) as npz:
-            return dict(npz)
+            data = dict(npz)
+        if show:
+            from sfmfromscratch_tpu_torch.viz.scatter3d import V3D
+
+            return V3D(data["p3d"], data["frame_idx"], data["pt_idx"])
+        return data

@@ -119,14 +119,22 @@ def test_engine_matches_jax_engine(scene3, jax_run, tmp_path):
     # save_data writes the JAX engine's npz layout; load(show=False) reads it.
     jax_run.model_name, jax_run.output_dir = "j", str(tmp_path)
     jax_run.save_data()
-    got = tinc.SfmEngine.load("m", str(tmp_path))
+    got = tinc.SfmEngine.load("m", str(tmp_path), show=False)
     ref = jinc.SfmEngine.load("j", str(tmp_path), show=False)
     assert sorted(got) == sorted(ref)
     for k in got:
         assert got[k].dtype == ref[k].dtype and got[k].shape[1:] == ref[k].shape[1:], k
     assert os.path.exists(tmp_path / "m.npz")
-    with pytest.raises(NotImplementedError):
-        tinc.SfmEngine.load("m", str(tmp_path), show=True)
+    # load() opens the 3-D viewer by default, as the JAX engine's does.
+    import matplotlib
+
+    from sfmfromscratch_tpu_torch.viz.scatter3d import V3D
+
+    matplotlib.use("Agg", force=True)
+    viewer = tinc.SfmEngine.load("m", str(tmp_path))
+    assert isinstance(viewer, V3D)
+    np.testing.assert_array_equal(viewer.points_3d, got["p3d"])
+    assert len(viewer.scatter_plot) == len(np.unique(got["frame_idx"]))
 
 
 def test_global_ba_on_jax_front(scene3):

@@ -235,9 +235,14 @@ def test_superpoint_random_init_contract():
 
 def test_tinypoint_checkpoint_contract():
     """The port's ``test_tinypoint_checkpoint_contract``: "auto" finds the
-    JAX package's TinyPoint checkpoint in place and emits 128-D unit
-    descriptors."""
-    assert tsp.default_weights_path() == jsp.default_weights_path()
+    port's own TinyPoint checkpoint, a byte-equal copy of the JAX package's,
+    and emits 128-D unit descriptors."""
+    import pathlib
+
+    path = pathlib.Path(tsp.default_weights_path())
+    port = pathlib.Path(tsp.__file__).resolve().parents[1]
+    assert path.resolve().parent == port / "weights"
+    assert path.read_bytes() == pathlib.Path(jsp.default_weights_path()).read_bytes()
     ext = tsp.SuperPointExtractor()
     img = _t(np.random.default_rng(7).uniform(0, 1, (120, 160)), torch.float32)
     f = ext(img, k=128)

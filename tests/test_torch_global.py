@@ -131,7 +131,7 @@ def test_engines_pass_the_global_fixture_gates(which, rendered, jax_stages, port
     name = "jg" if which == "jax" else "tg"
     assert os.path.exists(os.path.join(eng.output_dir, f"{name}.npz"))
     if which == "port":
-        data = TGlobal.load(name, output_dir=eng.output_dir)
+        data = TGlobal.load(name, output_dir=eng.output_dir, show=False)
         assert data["poses"].shape[0] == len(eng.global_poses) and data["p3d"].shape[1] == 3
         assert set(eng.stage_times) >= {"features", "matching", "filter", "relative_poses",
                                         "motion_averaging", "tracks", "triangulate", "ba",
@@ -241,11 +241,12 @@ def _partition(track_of_node, nodes):
 
 def test_build_tracks_partitions_match_jax(rendered, jax_stages):
     """Union-find on the engine's inlier match edges and on random edges
-    with conflicting duplicates: the same partition of nodes into tracks and
-    the same tracks flagged invalid (two observations in one image) as the
-    JAX bindings; then the port's ``_build_tracks`` stage on the JAX
-    engine's averaged state gives the same observation lists, up to the
-    numbering of tracks."""
+    with conflicting duplicates: the same track ids (both packages run
+    ``native/trackgraph.cpp``), hence the same partition of nodes into
+    tracks, and the same tracks flagged invalid (two observations in one
+    image) as the JAX bindings; then the port's ``_build_tracks`` stage on
+    the JAX engine's averaged state gives the same observation lists and
+    track ids."""
     r = np.random.default_rng(43)
     C, cap = 6, 50
     ea = r.integers(0, C * cap, 180)
@@ -254,6 +255,8 @@ def test_build_tracks_partitions_match_jax(rendered, jax_stages):
     got = tbuild_tracks(ea, eb, C * cap, node_image=node_image)
     ref = jbuild_tracks(ea, eb, C * cap, node_image=node_image)
     assert got[1] == ref[1]
+    np.testing.assert_array_equal(got[0], ref[0])
+    np.testing.assert_array_equal(got[2], ref[2])
     nodes = np.arange(C * cap)
     assert _partition(got[0], nodes) == _partition(ref[0], nodes)
     bad_got = _partition(got[0], nodes[~got[2][got[0]]])
@@ -271,6 +274,7 @@ def test_build_tracks_partitions_match_jax(rendered, jax_stages):
     np.testing.assert_allclose(teng._obs_xy, ref._obs_xy, rtol=0, atol=1e-4)
     obs = np.arange(len(ref._obs_pt))
     assert _partition(teng._obs_pt, obs) == _partition(ref._obs_pt, obs)
+    np.testing.assert_array_equal(teng._obs_pt, ref._obs_pt)
 
 
 def test_triangulate_from_jax_tracks(rendered, jax_stages):

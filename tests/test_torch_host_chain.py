@@ -435,6 +435,72 @@ def test_jax_checkpoint_loads(scene, jax_pairs, tmp_path):
     assert len(teng.warnings) == 1 and "rng_state" in teng.warnings[0]
 
 
+def _aux_state(engine, rng):
+    """``tests/test_aux.py::test_async_checkpointer_roundtrip``'s state: 6
+    tracks seen by 2 frames, one pose, K, one keypoint table."""
+    from sfmfromscratch_tpu.config import PipelineConfig
+
+    engine.config = PipelineConfig()
+    ids = engine.map.add_tracks(rng.standard_normal((6, 3)), rng.uniform(0, 50, (6, 2)), 0)
+    engine.map.add_observations(ids, rng.uniform(0, 50, (6, 2)), 1)
+    engine.global_poses = [(rng.standard_normal(3), rng.standard_normal(3))]
+    engine.global_K = [np.eye(3)]
+    engine._kp_tracks = {1: np.arange(10, dtype=np.int64)}
+
+
+def test_async_checkpointer_round_trip(tmp_path):
+    """``AsyncCheckpointer`` against the JAX (Orbax) one on
+    ``test_aux.py:132``'s round trip: save step 1, ``wait``, restore into an
+    empty engine; both restore the same points, observations, poses, K and
+    keypoint table, exactly. The port's state is snapshotted at ``save``
+    (a later change to the engine does not reach the file), it lands as
+    ``step_<n>/state.npz``, a restore waits for pending saves, and a writer's
+    error is raised by ``wait``."""
+    from sfmfromscratch_tpu_torch.pipeline.tracks import MapStore as TMap
+    from sfmfromscratch_tpu.pipeline.tracks import MapStore as JMap
+
+    jeng = jinc.SfmEngine.__new__(jinc.SfmEngine)
+    jeng.map = JMap()
+    _aux_state(jeng, np.random.default_rng(5))
+    jeng._rng_key = jax.random.key(9)
+    teng = tinc.SfmEngine.__new__(tinc.SfmEngine)
+    teng.map = TMap()
+    _aux_state(teng, np.random.default_rng(5))
+    teng._generator = torch.Generator().manual_seed(9)
+    state = teng._generator.get_state().clone()
+
+    jck = jckpt.AsyncCheckpointer(str(tmp_path / "j"))
+    jck.save(jeng, next_frame=5, step=1)
+    jck.wait()
+    tck = tckpt.AsyncCheckpointer(str(tmp_path / "t"))
+    path = tck.save(teng, next_frame=5, step=1)
+    assert path == str(tmp_path / "t" / "step_1")
+    teng.map.add_observations(np.arange(6), np.zeros((6, 2)), 2)   # after the snapshot
+    tck.save(teng, next_frame=7, step=2)
+    tck.wait()
+    assert sorted(os.listdir(tmp_path / "t" / "step_1")) == ["state.npz"]
+
+    jback = jinc.SfmEngine.__new__(jinc.SfmEngine)
+    jback.config = teng.config
+    tback = tinc.SfmEngine.__new__(tinc.SfmEngine)
+    tback._generator = torch.Generator()
+    assert jck.restore(jback, step=1) == tck.restore(tback, step=1) == 5
+    np.testing.assert_array_equal(tback.map.points(), jback.map.points())
+    for a, b in zip(tback.map.observations(), jback.map.observations()):
+        np.testing.assert_array_equal(a, b)
+    assert tback.map.num_observations == jback.map.num_observations == 12
+    np.testing.assert_array_equal(np.hstack(tback.global_poses[0]), np.hstack(jback.global_poses[0]))
+    np.testing.assert_array_equal(np.stack(tback.global_K), np.stack(jback.global_K))
+    np.testing.assert_array_equal(tback._kp_tracks[1], jback._kp_tracks[1])
+    assert torch.equal(tback._generator.get_state(), state)
+    assert tck.restore(tback, step=2) == 7 and tback.map.num_observations == 18
+
+    (tmp_path / "t" / "step_3").write_text("a file where the step's folder goes")
+    tck.save(teng, next_frame=9, step=3)
+    with pytest.raises(OSError):
+        tck.wait()
+
+
 def test_export_matches_jax(scene, jax_pairs, tmp_path):
     """PLY and COLMAP text written by the port for a state imported from the
     JAX engine is the JAX package's text, byte for byte."""
@@ -454,8 +520,8 @@ def test_export_matches_jax(scene, jax_pairs, tmp_path):
 
 def test_cli_help_and_resize(tmp_path):
     """``--help`` exits; ``resize`` writes the images at the ratio
-    (``tests/test_aux.py::test_cli_help_and_resize``); ``show`` refuses with
-    a message."""
+    (``tests/test_aux.py::test_cli_help_and_resize``); ``show`` of a model
+    that was never saved raises, as the JAX CLI's does."""
     from PIL import Image
 
     with pytest.raises(SystemExit):
@@ -466,7 +532,8 @@ def test_cli_help_and_resize(tmp_path):
     assert tcli.main(["resize", str(src), str(dst), "--ratio", "0.5", "--no-exif"]) == 0
     with Image.open(dst / "a.jpg") as im:
         assert im.size == (50, 40)
-    assert tcli.main(["show", "model"]) != 0
+    with pytest.raises(FileNotFoundError):
+        tcli.main(["show", "model", "--output-dir", str(tmp_path / "none")])
 
 
 def test_save_image_matches_jax(tmp_path):
@@ -505,7 +572,7 @@ def test_cli_reconstruct(scene, tmp_path, capsys, pipeline):
     assert tcli.main(_cli_argv(scene, tmp_path, *extra)) == 0
     lines = capsys.readouterr().out.strip().splitlines()
     assert len(lines) == 2 and all(re.fullmatch(p, s) for p, s in zip(_LINES, lines)), lines
-    data = tinc.SfmEngine.load("m", str(tmp_path))
+    data = tinc.SfmEngine.load("m", str(tmp_path), show=False)
     cams = VIEWS - 1 if pipeline == "incremental" else VIEWS
     assert data["poses"].shape == (cams, 6) and np.isfinite(data["p3d"]).all()
     assert (tmp_path / "m.ply").exists()

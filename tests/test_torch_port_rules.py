@@ -87,7 +87,15 @@ _SLICE_8 = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ba.py"
             "parallel/sharded_match.py")
 
 
-@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5 + _SLICE_6 + _SLICE_7 + _SLICE_8)
+# The modules of the class-API slice (compat, the viewer, the C++ host
+# components, the packed fetch, the asynchronous checkpointer).
+_SLICE_9 = ("compat.py", "viz/__init__.py", "viz/overlays.py", "viz/scatter3d.py",
+            "native/__init__.py", "native/build.py", "native/bindings.py", "utils/fetch.py",
+            "__init__.py")
+
+
+@pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5 + _SLICE_6 + _SLICE_7 + _SLICE_8
+                         + _SLICE_9)
 def test_engine_slice_modules_import_no_jax(rel):
     """Each module of the engine slices exists beside its JAX twin
     (``interop`` is the port's own), and importing it alone in a fresh
@@ -102,6 +110,79 @@ def test_engine_slice_modules_import_no_jax(rel):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN []" in r.stdout, r.stdout
+
+
+def _docstrings(tree):
+    """The docstring nodes of a module's AST."""
+    out = set()
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef, ast.AsyncFunctionDef)):
+            body = node.body
+            if body and isinstance(body[0], ast.Expr) and isinstance(body[0].value, ast.Constant):
+                out.add(id(body[0].value))
+    return out
+
+
+def test_port_opens_no_path_of_the_jax_package():
+    """No string of the port's code (docstrings aside, which cite the JAX
+    files) names the JAX package's directory, so no source joins a path into
+    it; the TinyPoint checkpoint is the port's own, byte-equal copy; and no
+    option of the port raises ``NotImplementedError`` any more."""
+    import re
+
+    from sfmfromscratch_tpu_torch.ops.superpoint import default_weights_path
+
+    pattern = re.compile(r"(^|[^\w])sfmfromscratch_tpu($|[^\w])")
+    for path in sorted(PORT.rglob("*.py")):
+        text = path.read_text()
+        tree = ast.parse(text, str(path))
+        docs = _docstrings(tree)
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Constant) and isinstance(node.value, str) \
+                    and id(node) not in docs:
+                assert not pattern.search(node.value), (path, node.value)
+        assert "NotImplementedError" not in text, path
+    weights = pathlib.Path(default_weights_path())
+    assert weights.resolve().is_relative_to(PORT.resolve())
+    assert weights.read_bytes() == (ROOT / "sfmfromscratch_tpu" / "weights"
+                                    / "tinypoint_synth.npz").read_bytes()
+
+
+def test_port_exports_the_jax_top_level_names():
+    """``import sfmfromscratch_tpu_torch`` gives the JAX package's top-level
+    names (``__init__.py:57-65``), without its XLA compile-cache set-up."""
+    import sfmfromscratch_tpu as jpkg
+    import sfmfromscratch_tpu_torch as tpkg
+
+    names = ("SensorType", "intrinsics_from_exif", "projection_matrix", "project_points",
+             "ExtractorConfig", "MatcherConfig", "RansacConfig", "PipelineConfig", "__version__")
+    for name in names:
+        assert hasattr(jpkg, name) and hasattr(tpkg, name), name
+    assert tpkg.__version__ == jpkg.__version__
+    assert [m.name for m in tpkg.SensorType] == [m.name for m in jpkg.SensorType]
+    R, t, K = torch.eye(3), torch.tensor([0.0, 0.0, 1.0]), torch.eye(3) * 2
+    P = tpkg.projection_matrix(R, t, K)
+    np.testing.assert_array_equal(P.numpy(), np.asarray(jpkg.projection_matrix(
+        np.eye(3, dtype=np.float32), np.array([0.0, 0.0, 1.0], np.float32),
+        np.eye(3, dtype=np.float32) * 2)))
+
+
+def test_fetch_matches_jax():
+    """``utils/fetch.py``: ``device_get_packed`` returns the JAX function's
+    arrays (shapes, dtypes and values exactly) for float32, int32, bool and
+    scalar leaves; ``sync_device`` returns on a CPU tensor."""
+    from sfmfromscratch_tpu.utils.fetch import device_get_packed as jget
+    from sfmfromscratch_tpu_torch.utils.fetch import device_get_packed, sync_device
+
+    r = np.random.default_rng(2)
+    arrays = [r.standard_normal((3, 4)).astype(np.float32), r.integers(-9, 9, 7).astype(np.int32),
+              r.uniform(size=(2, 2)) > 0.5, np.float32(2.5)]
+    got = device_get_packed(*(torch.as_tensor(a) for a in arrays))
+    ref = jget(*arrays)
+    for g, j in zip(got, ref, strict=True):
+        assert g.dtype == j.dtype and g.shape == j.shape
+        np.testing.assert_array_equal(g, j)
+    sync_device(torch.zeros(3))
 
 
 def test_port_sources_name_no_jax():
@@ -326,8 +407,8 @@ def test_engine_config_off_the_default_path_raises(ransac, tmp_path):
     """``pnp_solver="dlt"`` and fixed-count RANSAC are taken with the JAX
     engine's meaning: "dlt" raises the chain's P3P hypotheses to
     ``num_iterations()`` (5,967), and ``adaptive=False`` runs every RANSAC
-    stage at that fixed count. Two images still raise (the port's engine
-    needs three)."""
+    stage at that fixed count. Two images are taken too, on the JAX
+    engine's staged path (no fused front, ``incremental.py:863``)."""
     import dataclasses
 
     from sfmfromscratch_tpu_torch.config import PipelineConfig, RansacConfig
@@ -338,20 +419,37 @@ def test_engine_config_off_the_default_path_raises(ransac, tmp_path):
     assert eng._num_hyp == 5967
     assert eng._pnp_hyp == (5967 if ransac.get("pnp_solver") == "dlt" else 512)
     assert eng.config.ransac.adaptive is ransac.get("adaptive", True)
-    with pytest.raises(NotImplementedError):
-        SfmEngine(str(tmp_path), 2, device="cpu", auto_run=False)
+    two = SfmEngine(str(tmp_path), 2, config=cfg, device="cpu", auto_run=False)
+    assert two.max_img == 2 and two._candidate_pairs(None) == [(1, 2)]
+    assert two._use_scan_chain() and not two._fused_front_eligible(None)
 
 
 def test_engine_images_of_two_sizes_raise(tmp_path):
+    """Images of two sizes are taken, as the JAX engine takes them
+    (``incremental.py:614-621``): each is extracted on its own and the
+    fixed-capacity Features are stacked, each equal to its image's
+    ``extract_features``."""
     from PIL import Image
 
+    from sfmfromscratch_tpu_torch.config import ExtractorConfig, PipelineConfig
+    from sfmfromscratch_tpu_torch.pipeline.frontend import extract_features, preprocess_image
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
+    r = np.random.default_rng(4)
     for i, hw in enumerate([(40, 52), (40, 52), (44, 52)], start=1):
-        Image.fromarray(np.zeros(hw + (3,), np.uint8)).save(tmp_path / f"{i}.jpg")
-    eng = SfmEngine(str(tmp_path), 3, device="cpu", auto_run=False)
-    with pytest.raises(NotImplementedError):
-        eng.run()
+        Image.fromarray(r.integers(0, 256, hw + (3,), dtype=np.uint8)).save(tmp_path / f"{i}.png")
+        os.rename(tmp_path / f"{i}.png", tmp_path / f"{i}.jpg")   # lossless pixels
+    cfg = PipelineConfig(extractor=ExtractorConfig(num_interest_points=30, ksize=3,
+                                                   pyramid_level=2, feature_width=8),
+                         scale_factor=1.0)
+    eng = SfmEngine(str(tmp_path), 3, config=cfg, device="cpu", auto_run=False)
+    feats = eng._extract_all_features()
+    assert feats.descriptors.shape == (3, 30, 128)
+    with Image.open(tmp_path / "3.jpg") as im:
+        one = extract_features(preprocess_image(np.asarray(im, np.float32) / 255.0, 1.0), cfg.extractor)
+    assert torch.equal(feats.keypoints.x[2], one.keypoints.x)
+    assert torch.equal(feats.descriptors[2], one.descriptors)
+    assert set(eng._kp_tracks) == {1, 2, 3}
 
 
 def test_wrappers_dispatch_by_device():
