@@ -85,10 +85,18 @@ Phases, each printing JSON lines:
              CPU spread (``tools/compat_pins.py``). The global phase's line
              also says whether its tracks came from the C++ union-find
              (``native_tracks``), checked against the numpy one.
+12. train  — TinyPoint's trainer (``ops/sp_train.py``): card against CPU
+             over 5 steps from JAX's initial weights (losses and the first
+             step's gradients), two card runs of 20
+             steps bit for bit, the 1,500-step recipe timed (host
+             ``make_batch``, device time and idle share) with its losses and
+             corner hit rate, the hybrid engine on the trained checkpoint,
+             and 20 steps of the full-width net. Held to pins beside the JAX
+             trainer's CPU spread (``tools/train_pins.py``).
 
 The line before last is ``{"kernels": [...]}``, with each kernel's launch
 counts on every path (engine, two-view, global, orbit, host, scale, per
-run of the extractors, mesh and compat phases), the f32 matcher's row with
+run of the extractors, mesh, compat and train phases), the f32 matcher's row with
 its D=256 case (``superpoint_d256``); the last is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line. Without a CUDA card, or without the rest of the repository
@@ -639,6 +647,78 @@ COMPAT_MIN_F_INLIERS = 400
 COMPAT_PNP_ROT_GAP_DEG = 0.16
 COMPAT_PNP_TDIR_GAP_DEG = 10.0
 COMPAT_TRI_RTOL = 1e-3
+
+
+# The train phase: TinyPoint's recipe (tools/train_superpoint.py's defaults,
+# sp_train.py:278-279), the corner test of tests/test_extensions.py:51-70 at
+# 20 shapes seeds, and the hybrid engine on the trained checkpoint.
+TRAIN_STEPS = 1500
+TRAIN_BATCH = 16
+TRAIN_HW = (120, 160)
+TRAIN_SEED = 0
+TRAIN_LAST = 100            # the loss pins read the mean of the last 100 steps
+HIT_SEEDS = tuple(range(20))
+HIT_K = 128
+HIT_PX = 4.0
+TRAIN_CPU_STEPS = 5         # card against CPU from the same carried weights
+# Card against CPU (chip run, NVIDIA H100 80GB HBM3, 700 W): the first
+# step's losses the same bits, then 9.0e-6, 2.6e-5, 3.0e-4 and 6.8e-4
+# relative at steps 1-4, also on dithered batches (2.4e-6, 2.4e-5, 3.7e-4,
+# 2.2e-4): Adam's first step moves every weight by about lr whatever its
+# gradient's size, so weights whose gradients sit at rounding level part by
+# up to 2 lr, and the loss gap grows from step 3 on. Steps 0-2 are held to
+# 1e-4, all five to 2e-3. The first step's gradients on the dithered first
+# batch (no max-pool ties) are held to the same net in float64 on the CPU:
+# on the card each tensor within 2e-4 of its largest |g| (measured 9.4e-5;
+# with the backward outside the scope, in TF32, 8.7e-4; the CPU's own
+# float32 6.0e-4 at this size, so the CPU's float32 is no reference here).
+TRAIN_CPU_RTOL = 1e-4
+TRAIN_CPU_RTOL_STEPS = 3
+TRAIN_CPU_RTOL_LATE = 2e-3
+TRAIN_GRAD_TOL = 2e-4
+TRAIN_REPEAT_STEPS = 20     # two card runs, bit for bit
+TRAIN_FULL_STEPS = 20       # the full-width net
+TRAIN_PROFILE_STEPS = 20
+# JAX's SuperPointNet.tiny() initialised at jax.random.key(0), in the npz
+# format of save_flax_weights (python tools/train_pins.py --write-init).
+TRAIN_INIT_NPZ = os.path.join("tests", "data", "tinypoint_init_key0.npz")
+# Pins from the JAX trainer on the CPU at the recipe (tools/train_pins.py,
+# training seeds 0-2, the hybrid engine at config.seed 0-9 on each
+# checkpoint, 30 runs, every one registering 9 cameras):
+#   last-100-step mean ld 2.877-2.941, ldesc 0.1732-0.1747;
+#   corner hit rate 0.877-0.907 (the committed checkpoint 0.887);
+#   hybrid ATE over extent 0.0131-0.1660, post-BA error 0.099-0.206 px,
+#     tracks 785-923.
+# The house rule: losses 1.25x the highest, the hit rate 0.9x the lowest,
+# the hybrid run the engine pins' margins (1.6x, 1.6x, two thirds).
+PIN_TRAIN_LD = 3.68
+PIN_TRAIN_LDESC = 0.218
+PIN_TRAIN_HIT_RATE = 0.789
+PIN_TRAIN_HYBRID = dict(ate_over_extent=0.266, reproj_px=0.329, min_tracks=523)
+TRAIN_LAUNCHES = {"recipe": {"harris_response_fused": 0, "match_top2_fused": 0},
+                  "hybrid": {"harris_response_fused": 0, "match_top2_fused": 1},
+                  "full_width": {"harris_response_fused": 0, "match_top2_fused": 0}}
+
+
+def corner_hit_rate(detect, draw_shapes, seeds=HIT_SEEDS, hw=TRAIN_HW, px=HIT_PX):
+    """The share of ``draw_shapes``' exact corners with a detection within
+    ``px`` pixels, over the shapes of ``default_rng(seed)`` for each seed
+    (``tests/test_extensions.py:51-70``). ``detect(image)`` takes a (H, W)
+    float32 numpy image and returns the valid keypoints as (n, 2) numpy
+    (x, y). Returns (hits, corners)."""
+    import numpy as np
+
+    hits = total = 0
+    for seed in seeds:
+        img, corners = draw_shapes(np.random.default_rng(seed), *hw)
+        if len(corners) == 0:
+            continue
+        kp = np.asarray(detect(img), np.float64).reshape(-1, 2)
+        if len(kp):
+            d = np.linalg.norm(corners[:, None, :] - kp[None, :, :], axis=-1)
+            hits += int((d.min(axis=1) <= px).sum())
+        total += len(corners)
+    return hits, total
 
 
 def scale_cli_argv(seq: str, cache: str, *extra):
@@ -2348,6 +2428,327 @@ def compat_phase(dev, engine_ba):
     return launches
 
 
+def _superpoint_train_flops(channels, desc_dim, hw, images):
+    """Operations of one train step of a SuperPoint net: 2 per multiply-add
+    of the forward convolutions, times 3 for the forward and the backward
+    (data and weight gradients), over ``images`` images of ``hw``."""
+    c1, c2, c3, c4, c5 = channels
+    H, W = hw
+    px = [H * W, H * W // 4, H * W // 16, H * W // 64]
+    macs = (px[0] * 9 * (c1 + c1 * c1) + px[1] * 9 * (c1 * c2 + c2 * c2)
+            + px[2] * 9 * (c2 * c3 + c3 * c3)
+            + px[3] * (9 * (c3 * c4 + c4 * c4 + 2 * c4 * c5) + c5 * (65 + desc_dim)))
+    return 3 * 2 * macs * images
+
+
+def _train_losses(net, batches):
+    """Each step's (loss, ld, ldesc) of ``make_train_step(net)`` over
+    ``batches``, read on the host after the last step: (steps, 3) float64."""
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch.ops.sp_train import make_train_step
+
+    _, step = make_train_step(net)
+    out = torch.stack([torch.stack(step(b)) for b in batches])
+    return out.cpu().numpy().astype(np.float64)
+
+
+def _first_step_grads(net, batch):
+    """The gradients of one ``make_train_step`` step of ``net`` on
+    ``batch`` (left in ``.grad`` by the step), in flax layout as numpy."""
+    from sfmfromscratch_tpu_torch.ops.sp_train import make_train_step
+    from sfmfromscratch_tpu_torch.ops.superpoint import flax_params_from_state_dict
+
+    _, step = make_train_step(net)
+    step(batch)
+    return flax_params_from_state_dict({n: p.grad for n, p in net.named_parameters()})
+
+
+def _loss_grads(net, batch, backward_in_scope=True):
+    """The gradients of the train step's loss on ``batch`` with ``net`` in
+    its own dtype (float64 for a reference), in flax layout as numpy. With
+    ``backward_in_scope=False`` only the forward runs in ``f32_precision``
+    and the backward runs with the process's defaults (cuDNN convolutions in
+    TF32 unless ``torch.backends.cudnn.allow_tf32`` is off): the mistake
+    ``sp_train.train_scope`` prevents."""
+    import contextlib
+
+    import torch
+
+    from sfmfromscratch_tpu_torch.ops import sp_train as SPT
+    from sfmfromscratch_tpu_torch.ops.superpoint import flax_params_from_state_dict
+    from sfmfromscratch_tpu_torch.utils.precision import f32_precision
+
+    p = next(net.parameters())
+    imgs, labs, imgs_w, labs_w, Hs = (torch.as_tensor(a).to(p.device) for a in batch)
+    with SPT.train_scope() if backward_in_scope else contextlib.nullcontext():
+        with f32_precision():
+            semi_a, desc_a = net(imgs[:, None].to(p.dtype))
+            semi_b, desc_b = net(imgs_w[:, None].to(p.dtype))
+            ld = SPT._detector_ce(semi_a, labs.long()) + SPT._detector_ce(semi_b, labs_w.long())
+            loss = ld + torch.mean(SPT._descriptor_hinge(desc_a, desc_b, Hs))
+        loss.backward()
+    return flax_params_from_state_dict({n: q.grad for n, q in net.named_parameters()})
+
+
+def _dither(batch, seed):
+    """``batch`` with uniform noise of at most 1e-3 on both views: no pixel
+    clipped to exactly 0 or 1 ties in the max pools any more."""
+    import numpy as np
+
+    r = np.random.default_rng(seed)
+    imgs, labs, imgs_w, labs_w, Hs = batch
+    return ((imgs + r.uniform(0, 1e-3, imgs.shape)).astype(np.float32), labs,
+            (imgs_w + r.uniform(0, 1e-3, imgs_w.shape)).astype(np.float32), labs_w, Hs)
+
+
+def train_phase(dev, peaks):
+    """TinyPoint's trainer (``ops/sp_train.py``) on the card:
+
+    1. card against CPU: ``TRAIN_CPU_STEPS`` steps of the same
+       ``make_batch`` batches from JAX's ``key(0)`` initial weights
+       (``TRAIN_INIT_NPZ``), the first ``TRAIN_CPU_RTOL_STEPS`` steps' losses
+       within ``TRAIN_CPU_RTOL`` and all within ``TRAIN_CPU_RTOL_LATE``, and
+       the card's first-step gradients (on the dithered first batch) within
+       ``TRAIN_GRAD_TOL`` of the float64 net's on the CPU;
+    2. repeatability: ``TRAIN_REPEAT_STEPS`` steps twice from one seed, the
+       same bits; one step again under
+       ``torch.use_deterministic_algorithms(True, warn_only=True)``;
+    3. the recipe: ``train()`` at ``TRAIN_STEPS`` x ``TRAIN_BATCH`` at
+       ``TRAIN_HW``, timed (host ``make_batch``, the step, the profiler over
+       ``TRAIN_PROFILE_STEPS`` steps for device time and idle share); its
+       checkpoint saved and loaded back; the losses and the corner hit rate
+       held to ``tools/train_pins.py``'s pins;
+    4. the hybrid engine on the new checkpoint on the bench sequence, held
+       to the same tool's pins, launches counted;
+    5. the full-width net for ``TRAIN_FULL_STEPS`` steps.
+
+    Returns the launch counts per run."""
+    import copy
+    import tempfile
+    import warnings
+
+    import numpy as np
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from sfmfromscratch_tpu_torch.ops import sp_train as SPT
+    from sfmfromscratch_tpu_torch.ops.superpoint import (
+        SuperPointExtractor, SuperPointNet, load_flax_weights, make_hybrid_extractor,
+        save_flax_weights,
+    )
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    H, W = TRAIN_HW
+    t_phase = time.perf_counter()
+    row, launches = {"phase": "train", "card": _nvidia_smi()}, {}
+
+    # 1. Card against CPU from the carried initial weights.
+    init = os.path.join(ROOT, TRAIN_INIT_NPZ)
+    rng = np.random.default_rng(TRAIN_SEED)
+    batches = [SPT.make_batch(rng, TRAIN_BATCH, H, W) for _ in range(TRAIN_CPU_STEPS)]
+    card = _train_losses(load_flax_weights(init).to(dev), batches)
+    t0 = time.perf_counter()
+    cpu = _train_losses(load_flax_weights(init), batches)
+    cpu_s = (time.perf_counter() - t0) / TRAIN_CPU_STEPS
+    rel = np.abs(card - cpu) / np.abs(cpu)
+    def err(got):
+        """The largest error of any tensor against float64, over its max |g|."""
+        return max(float(np.abs(got[k][leaf] - v).max() / np.abs(v).max())
+                   for k, leaves in ref.items() for leaf, v in leaves.items())
+
+    dithered = _dither(batches[0], 0)
+    ref = _loss_grads(load_flax_weights(init).double(), dithered)
+    grad_err = dict(
+        card=err(_first_step_grads(load_flax_weights(init).to(dev), dithered)),
+        cpu_float32=err(_first_step_grads(load_flax_weights(init), dithered)),
+        card_backward_outside_scope=err(
+            _loss_grads(load_flax_weights(init).to(dev), dithered, backward_in_scope=False)),
+        cudnn_allow_tf32_default=bool(torch.backends.cudnn.allow_tf32))
+    row["card_vs_cpu"] = dict(steps=TRAIN_CPU_STEPS, card=card.tolist(), cpu=cpu.tolist(),
+                              max_rel_per_step=rel.max(1).tolist(), cpu_s_per_step=cpu_s,
+                              rtol=TRAIN_CPU_RTOL, rtol_steps=TRAIN_CPU_RTOL_STEPS,
+                              rtol_late=TRAIN_CPU_RTOL_LATE, first_step_grad_err=grad_err,
+                              grad_tol=TRAIN_GRAD_TOL)
+
+    # 2. Repeatability on the card.
+    rng = np.random.default_rng(TRAIN_SEED)
+    batches = [SPT.make_batch(rng, TRAIN_BATCH, H, W) for _ in range(TRAIN_REPEAT_STEPS)]
+
+    def fresh():
+        net = SuperPointNet.tiny()
+        net.reset_parameters_flax(torch.Generator().manual_seed(TRAIN_SEED))
+        return net.to(dev)
+
+    first, second = _train_losses(fresh(), batches), _train_losses(fresh(), batches)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.use_deterministic_algorithms(True, warn_only=True)
+        try:
+            probe = _train_losses(fresh(), batches[:1])
+        finally:
+            torch.use_deterministic_algorithms(False)
+    flagged = sorted({str(w.message).splitlines()[0][:160] for w in caught
+                      if "determinis" in str(w.message)})
+    row["repeat"] = dict(steps=TRAIN_REPEAT_STEPS, bit_equal=first.tobytes() == second.tobytes(),
+                         last=first[-1].tolist(), deterministic_mode_flagged=flagged,
+                         deterministic_mode_same_bits=probe[0].tobytes() == first[0].tobytes())
+
+    # 3. The recipe, timed: host make_batch, the whole loop, and a profiled
+    # window of steps for the device time and idle share.
+    batch_s, losses = [], []
+    make_batch, make_train_step = SPT.make_batch, SPT.make_train_step
+
+    def timed_batch(*a):
+        t = time.perf_counter()
+        out = make_batch(*a)
+        batch_s.append(time.perf_counter() - t)
+        return out
+
+    def recording(net, *a, **k):
+        opt, step = make_train_step(net, *a, **k)
+
+        def rec(b):
+            out = step(b)
+            losses.append(torch.stack(out))
+            return out
+        return opt, rec
+
+    SPT.make_batch, SPT.make_train_step = timed_batch, recording
+    try:
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        net = SPT.train(steps=TRAIN_STEPS, batch=TRAIN_BATCH, hw=TRAIN_HW, seed=TRAIN_SEED,
+                        device=dev)
+        torch.cuda.synchronize()
+        recipe_s = time.perf_counter() - t0
+        launches["recipe"] = _launch_counts()
+    finally:
+        SPT.make_batch, SPT.make_train_step = make_batch, make_train_step
+    L = torch.stack(losses).cpu().numpy().astype(np.float64)
+    last = L[-TRAIN_LAST:]
+
+    side = copy.deepcopy(net)          # the window trains a copy on
+    _, step = make_train_step(side)
+    prof_rng = np.random.default_rng(TRAIN_SEED + 1)
+    step(make_batch(prof_rng, TRAIN_BATCH, H, W))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILE_STEPS):
+            step(make_batch(prof_rng, TRAIN_BATCH, H, W))
+        torch.cuda.synchronize()
+        window_s = time.perf_counter() - t0
+    busy_us = sum(e.time_range.elapsed_us() for e in prof.events()
+                  if e.device_type == DeviceType.CUDA)
+    fixed = make_batch(prof_rng, TRAIN_BATCH, H, W)
+    step_ms = _cuda_ms(lambda: step(fixed), reps=TRAIN_PROFILE_STEPS)
+    flops = _superpoint_train_flops(net.channels, net.desc_dim, TRAIN_HW, 2 * TRAIN_BATCH)
+    row["recipe"] = dict(
+        steps=TRAIN_STEPS, batch=TRAIN_BATCH, hw=list(TRAIN_HW), wall_s=recipe_s,
+        ms_per_step=recipe_s * 1e3 / TRAIN_STEPS,
+        make_batch_ms=float(np.mean(batch_s)) * 1e3,
+        device_ms_per_step=busy_us * 1e-3 / TRAIN_PROFILE_STEPS,
+        profiled_window_ms_per_step=window_s * 1e3 / TRAIN_PROFILE_STEPS,
+        idle_share=1.0 - busy_us * 1e-6 / window_s,
+        step_ms_batch_ready=step_ms, step_gflop=flops / 1e9,
+        step_bound_ms=flops / peaks["fp32_flops"] * 1e3,
+        first_loss=L[0].tolist(), last_loss=L[-1].tolist(),
+        last_mean_ld=float(last[:, 1].mean()), last_mean_ldesc=float(last[:, 2].mean()),
+        finite=bool(np.isfinite(L).all()), launches=launches["recipe"])
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as tmp:
+        ckpt = os.path.join(tmp, "tinypoint.npz")
+        save_flax_weights(ckpt, net)
+        back = load_flax_weights(ckpt)
+        same = (back.channels, back.desc_dim) == (net.channels, net.desc_dim) and all(
+            torch.equal(a.cpu(), b) for a, b in zip(net.state_dict().values(),
+                                                    back.state_dict().values()))
+        rates = {}
+        for label, path in (("trained", ckpt), ("committed", "auto")):
+            ext = SuperPointExtractor(path)
+
+            def detect(img):
+                kp = ext(torch.as_tensor(img, device=dev), k=HIT_K).keypoints
+                m = kp.mask.cpu().numpy()
+                return np.stack([kp.xf.cpu().numpy()[m], kp.yf.cpu().numpy()[m]], 1)
+
+            hits, corners = corner_hit_rate(detect, SPT._draw_shapes)
+            rates[label] = dict(hits=hits, corners=corners, rate=hits / max(corners, 1))
+        row["checkpoint"] = dict(round_trip=bool(same), hit_rate=rates)
+
+        # 4. The checkpoint in use: the hybrid engine on the bench sequence.
+        seq = os.path.join(tmp, "bench")
+        os.makedirs(seq)
+        n = EXTRACTOR_VIEWS
+        K, gt = bench_sequence(seq, n)
+        _zero_launch_counts()
+        t0 = time.perf_counter()
+        eng = SfmEngine(seq, n, config=engine_config(), single_K=K, device=dev,
+                        feature_extractor=make_hybrid_extractor(k=HYBRID_K, weights_path=ckpt))
+        torch.cuda.synchronize()
+        launches["hybrid"] = _launch_counts()
+        row["hybrid"] = _global_row(eng, gt, time.perf_counter() - t0, launches["hybrid"],
+                                    first_image=2)
+
+    # 5. The full-width net.
+    losses.clear()
+    SPT.make_train_step = recording
+    try:
+        _zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        full = SPT.train(steps=TRAIN_FULL_STEPS, batch=TRAIN_BATCH, hw=TRAIN_HW, seed=TRAIN_SEED,
+                         log_every=0, net=SuperPointNet(), device=dev)
+        torch.cuda.synchronize()
+        full_s = time.perf_counter() - t0
+        launches["full_width"] = _launch_counts()
+    finally:
+        SPT.make_train_step = make_train_step
+    F = torch.stack(losses).cpu().numpy().astype(np.float64)
+    flops_full = _superpoint_train_flops(full.channels, full.desc_dim, TRAIN_HW, 2 * TRAIN_BATCH)
+    row["full_width"] = dict(steps=TRAIN_FULL_STEPS, desc_dim=full.desc_dim,
+                             ms_per_step=full_s * 1e3 / TRAIN_FULL_STEPS,
+                             step_gflop=flops_full / 1e9,
+                             step_bound_ms=flops_full / peaks["fp32_flops"] * 1e3,
+                             losses=F[:, 0].tolist(), finite=bool(np.isfinite(F).all()),
+                             first5=float(F[:5, 0].mean()), last5=float(F[-5:, 0].mean()))
+    want = {k: dict(v, **{"match_top2_fused(bf16=True)": 0}) for k, v in TRAIN_LAUNCHES.items()}
+    row.update(launches=launches, want_launches=want, wall_s=time.perf_counter() - t_phase,
+               pins=dict(ld=PIN_TRAIN_LD, ldesc=PIN_TRAIN_LDESC, hit_rate=PIN_TRAIN_HIT_RATE,
+                         hybrid=PIN_TRAIN_HYBRID))
+    _print(row)
+
+    cc = row["card_vs_cpu"]
+    _check(bool(np.isfinite(card).all() and np.isfinite(cpu).all()), "train: non-finite losses")
+    _check(max(cc["max_rel_per_step"][:TRAIN_CPU_RTOL_STEPS]) <= TRAIN_CPU_RTOL
+           and max(cc["max_rel_per_step"]) <= TRAIN_CPU_RTOL_LATE,
+           f"train: card vs CPU losses {cc['max_rel_per_step']}")
+    _check(grad_err["card"] <= TRAIN_GRAD_TOL,
+           f"train: the card's first-step gradients against float64 {grad_err} > {TRAIN_GRAD_TOL}")
+    _check(row["repeat"]["bit_equal"], "train: two card runs gave other losses")
+    rc = row["recipe"]
+    _check(rc["finite"], "train: non-finite recipe losses")
+    _check(rc["last_mean_ld"] <= PIN_TRAIN_LD, f"train: ld {rc['last_mean_ld']} > {PIN_TRAIN_LD}")
+    _check(rc["last_mean_ldesc"] <= PIN_TRAIN_LDESC,
+           f"train: ldesc {rc['last_mean_ldesc']} > {PIN_TRAIN_LDESC}")
+    _check(row["checkpoint"]["round_trip"], "train: the saved checkpoint loads other weights")
+    hit = rates["trained"]["rate"]
+    _check(hit >= PIN_TRAIN_HIT_RATE, f"train: hit rate {hit} < {PIN_TRAIN_HIT_RATE}")
+    hy = row["hybrid"]
+    _check(hy["cameras"] == EXTRACTOR_VIEWS - 1, f"train hybrid: {hy['cameras']} cameras")
+    _check_pins("train hybrid", hy, PIN_TRAIN_HYBRID)
+    fw = row["full_width"]
+    _check(fw["finite"] and fw["last5"] <= fw["first5"],
+           f"train full width: losses {fw['first5']} -> {fw['last5']}")
+    for label, w in want.items():
+        _check(launches[label] == w, f"train {label} launches {launches[label]} != {w}")
+    return launches
+
+
 def _run_rank_groups(groups, work, device, limit_s):
     """Start every group of ranks at once, each ``(target, world, args)``
     running ``target(rank, device, *args)`` in ``world`` spawned processes
@@ -2822,6 +3223,7 @@ def main(argv) -> int:
         extractors, d256 = extractors_phase(dev, peaks)
         mesh = mesh_phase(dev, engine_ba)
         compat_runs = compat_phase(dev, engine_ba)
+        train = train_phase(dev, peaks)
         kernels[1]["superpoint_d256"] = d256
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
@@ -2833,6 +3235,7 @@ def main(argv) -> int:
             k["launches_extractors"] = extractors.get(k["name"], {})
             k["launches_mesh_per_rank"] = {run: n.get(k["name"], 0) for run, n in mesh.items()}
             k["launches_compat"] = {run: n.get(k["name"], 0) for run, n in compat_runs.items()}
+            k["launches_train"] = {run: n.get(k["name"], 0) for run, n in train.items()}
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -15,6 +15,7 @@ import numpy as np
 import torch
 
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp
+from sfmfromscratch_tpu_torch.utils.device import resolve_device
 
 
 class BAProblem(NamedTuple):
@@ -65,9 +66,13 @@ def make_problem(
     cam_fixed=None,
     pt_fixed=None,
     dtype=torch.float32,
-    device="cpu",
+    device=None,
 ) -> BAProblem:
-    """Build a BAProblem on ``device`` from reference-layout host arrays."""
+    """Build a BAProblem on ``device`` from reference-layout host arrays.
+    ``device=None`` means the CUDA card and raises without one, as the JAX
+    function builds on the default device (``problem.py:64-88``);
+    ``device="cpu"`` builds on the CPU."""
+    device = resolve_device(device)
     O = len(camera_indices)
     if obs_weights is None:
         obs_weights = np.ones(O, dtype=np.float32)

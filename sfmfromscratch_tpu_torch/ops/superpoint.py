@@ -102,15 +102,23 @@ def state_dict_from_flax(params: Dict[str, Dict[str, np.ndarray]]) -> Dict[str, 
     return sd
 
 
+def flax_params_from_state_dict(sd: Dict[str, torch.Tensor]) -> Dict[str, Dict[str, np.ndarray]]:
+    """A ``SuperPointNet`` state-dict-shaped dict ((out, in, kh, kw)
+    weights; parameters or their gradients) -> flax ``params`` layout
+    ({layer: {"kernel": (kh, kw, in, out), "bias"}}), as numpy."""
+    return {name: {"kernel": np.transpose(sd[f"{name}.weight"].detach().cpu().numpy(),
+                                          (2, 3, 1, 0)),
+                   "bias": sd[f"{name}.bias"].detach().cpu().numpy()}
+            for name in LAYERS}
+
+
 def save_flax_weights(path: str, net: SuperPointNet) -> None:
     """Write ``net`` as the JAX package's npz checkpoint: flax kernels and
     biases under ``<layer>.kernel`` / ``<layer>.bias`` with the widths
     (``superpoint.py:107-119``)."""
-    flat = {}
-    for name in LAYERS:
-        conv = getattr(net, name)
-        flat[f"{name}.kernel"] = np.transpose(conv.weight.detach().cpu().numpy(), (2, 3, 1, 0))
-        flat[f"{name}.bias"] = conv.bias.detach().cpu().numpy()
+    flat = {f"{name}.{leaf}": v
+            for name, p in flax_params_from_state_dict(net.state_dict()).items()
+            for leaf, v in p.items()}
     np.savez_compressed(path, __channels__=np.asarray(net.channels, np.int32),
                         __desc_dim__=np.asarray(net.desc_dim, np.int32), **flat)
 

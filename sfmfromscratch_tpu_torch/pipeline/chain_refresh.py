@@ -38,6 +38,7 @@ from sfmfromscratch_tpu_torch.geometry.two_view import refine_relative_pose
 from sfmfromscratch_tpu_torch.ops.harris import _median
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
 from sfmfromscratch_tpu_torch.ops.smallsvd import decompose_essential
+from sfmfromscratch_tpu_torch.utils.device import resolve_device
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
 
 
@@ -139,14 +140,16 @@ def _edge_poses(p1, p2, mask, K1, K2, gn_iters: int = 8):
 def solve_edge_scales(
     edge_i: np.ndarray, edge_j: np.ndarray, tid: np.ndarray,
     mask: np.ndarray, z1: np.ndarray, z2: np.ndarray,
-    lam_init: np.ndarray, device="cpu",
+    lam_init: np.ndarray, device=None,
 ) -> np.ndarray:
     """Per-edge baseline scales from two-view depth ratios, without the
     chain's structure (chain_refresh.py:192-245): a track seen from camera m
     through edges e1, e2 pins ``lam_e1 z^(e1) = lam_e2 z^(e2)``; in
     ``x = log lam`` this is a group-consistency least squares solved by CG on
-    ``device``. The gauge matches ``mean(log lam_init)``; edges with no usable
+    ``device`` (``None``: the CUDA card, raising without one; ``"cpu"``: the
+    CPU). The gauge matches ``mean(log lam_init)``; edges with no usable
     depth keep their ``lam_init``."""
+    device = resolve_device(device)
     E, cap = tid.shape
     eidx = np.tile(np.arange(E, dtype=np.int64)[:, None], (1, cap))
     gi = edge_i[:, None].astype(np.int64) * (tid.max() + 2) + tid

@@ -53,7 +53,8 @@ def test_problem_residuals_and_padding_match_jax():
     assert float(tprob.mean_reprojection_error(tpp)) == pytest.approx(
         float(tprob.mean_reprojection_error(tp)), abs=1e-6)
     made = tprob.make_problem(_np(jp.cam_params), _np(jp.points), _np(jp.obs_cam), _np(jp.obs_pt),
-                              _np(jp.obs_xy), _np(jp.K), cam_fixed=_np(jp.cam_fixed))
+                              _np(jp.obs_xy), _np(jp.K), cam_fixed=_np(jp.cam_fixed),
+                              device="cpu")
     for a, b in zip(made, tp):
         if a is not None:
             assert torch.equal(a, b)

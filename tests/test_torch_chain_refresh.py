@@ -138,7 +138,7 @@ def test_solve_edge_scales_matches_jax_and_recovers_ratios():
     z1c[::7] *= np.exp(rng.normal(0, 3.0, z1c[::7].shape))
     lam_init = np.ones(E)
     for zz1, bound in ((z1, 1.01), (z1c, 1.5)):
-        got = tcr.solve_edge_scales(edge_i, edge_j, tid, mask, zz1, z2, lam_init)
+        got = tcr.solve_edge_scales(edge_i, edge_j, tid, mask, zz1, z2, lam_init, device="cpu")
         ref = jcr.solve_edge_scales(edge_i, edge_j, tid, mask, zz1, z2, lam_init)
         np.testing.assert_allclose(got, ref, rtol=1e-4)
         r = got / lam_true
@@ -146,7 +146,7 @@ def test_solve_edge_scales_matches_jax_and_recovers_ratios():
     dead = mask.copy()
     dead[4] = False
     lam0 = np.linspace(0.5, 2.0, E)
-    got = tcr.solve_edge_scales(edge_i, edge_j, tid, dead, z1, z2, lam0)
+    got = tcr.solve_edge_scales(edge_i, edge_j, tid, dead, z1, z2, lam0, device="cpu")
     assert got[4] == np.float32(lam0[4])
     np.testing.assert_allclose(got, jcr.solve_edge_scales(edge_i, edge_j, tid, dead, z1, z2, lam0),
                                rtol=1e-4)

@@ -92,10 +92,12 @@ _SLICE_8 = ("parallel/__init__.py", "parallel/mesh.py", "parallel/sharded_ba.py"
 _SLICE_9 = ("compat.py", "viz/__init__.py", "viz/overlays.py", "viz/scatter3d.py",
             "native/__init__.py", "native/build.py", "native/bindings.py", "utils/fetch.py",
             "__init__.py")
+# The trainer slice (TinyPoint's self-supervised trainer).
+_SLICE_10 = ("ops/sp_train.py",)
 
 
 @pytest.mark.parametrize("rel", _SLICE_2 + _SLICE_4 + _SLICE_5 + _SLICE_6 + _SLICE_7 + _SLICE_8
-                         + _SLICE_9)
+                         + _SLICE_9 + _SLICE_10)
 def test_engine_slice_modules_import_no_jax(rel):
     """Each module of the engine slices exists beside its JAX twin
     (``interop`` is the port's own), and importing it alone in a fresh
@@ -110,6 +112,39 @@ def test_engine_slice_modules_import_no_jax(rel):
                        capture_output=True, text=True, timeout=120)
     assert r.returncode == 0, r.stderr
     assert "FORBIDDEN []" in r.stdout, r.stdout
+
+
+def test_train_tool_imports_no_jax():
+    """``tools/train_superpoint_torch.py`` names neither ``jax`` nor the JAX
+    package in any import, and run as a script in a fresh interpreter (with
+    ``train`` and the save stubbed) it loads neither, passes its ``steps``
+    argument on and saves to the port's own weights."""
+    tool = ROOT / "tools" / "train_superpoint_torch.py"
+    for node in ast.walk(ast.parse(tool.read_text(), str(tool))):
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = ([a.name for a in node.names] if isinstance(node, ast.Import)
+                     else [node.module or ""])
+            assert not any(_forbidden(n) for n in names), names
+    code = (
+        "import os, runpy, sys\n"
+        "import sfmfromscratch_tpu_torch.ops.sp_train as st\n"
+        "import sfmfromscratch_tpu_torch.ops.superpoint as sp\n"
+        "st.train = lambda steps: (print('STEPS', steps), sp.SuperPointNet.tiny())[1]\n"
+        "saved = []\n"
+        "sp.save_flax_weights = lambda path, net: saved.append(path)\n"
+        "os.path.getsize = lambda path: 0\n"
+        "sys.argv = ['train_superpoint_torch.py', '3']\n"
+        f"runpy.run_path({str(tool)!r}, run_name='__main__')\n"
+        "print('SAVED', saved)\n"
+        f"print('FORBIDDEN', sorted(n for n in sys.modules if n.split('.')[0] in {_FORBIDDEN!r}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN []" in r.stdout and "STEPS 3" in r.stdout, r.stdout
+    weights = str(PORT / "weights" / "tinypoint_synth.npz")
+    assert f"SAVED [{weights!r}]" in r.stdout, r.stdout
 
 
 def _docstrings(tree):
@@ -221,6 +256,33 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     fr = FeatureRunner.run(img, img, ExtractorConfig(num_interest_points=20, pyramid_level=1),
                            scale_factor=1.0, device="cpu")
     assert fr.image1_bw.device.type == "cpu"
+
+    # make_problem, the chain's edge scales and the trainer, as
+    # the JAX functions run on the default device.
+    from sfmfromscratch_tpu_torch.ba.problem import make_problem
+    from sfmfromscratch_tpu_torch.ops import sp_train
+    from sfmfromscratch_tpu_torch.pipeline.chain_refresh import solve_edge_scales
+
+    cams, pts = np.zeros((2, 6), np.float32), np.ones((3, 3), np.float32)
+    obs = (np.array([0, 1, 1]), np.array([0, 1, 2]), np.zeros((3, 2), np.float32),
+           np.stack([np.eye(3)] * 2))
+    E, cap = 3, 4
+    edges = (np.array([0, 0, 1]), np.array([1, 2, 2]), np.tile(np.arange(cap), (E, 1)),
+             np.ones((E, cap), bool), np.full((E, cap), 2.0), np.full((E, cap), 3.0), np.ones(E))
+    for device in (None, "cuda"):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make_problem(cams, pts, *obs, device=device)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            solve_edge_scales(*edges, device=device)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            sp_train.train(steps=1, batch=1, hw=(16, 16), device=device)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        make_problem(cams, pts, *obs)
+    assert make_problem(cams, pts, *obs, device="cpu").obs_cam.device.type == "cpu"
+    lam = solve_edge_scales(*edges, device="cpu")
+    assert lam.shape == (E,) and np.isfinite(lam).all()
+    net = sp_train.train(steps=1, batch=1, hw=(16, 16), log_every=0, device="cpu")
+    assert next(net.parameters()).device.type == "cpu"
 
 
 def test_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):

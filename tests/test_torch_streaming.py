@@ -76,7 +76,7 @@ def test_stream_matches_monolithic_ba(rng, tmp_path):
     cam_fixed = np.zeros(96, bool)
     cam_fixed[0] = True
     full = pad_problem(make_problem(m["cam_params"], m["points"], m["obs_cam"], m["obs_pt"],
-                                    m["obs_xy"], m["K"], cam_fixed=cam_fixed))
+                                    m["obs_xy"], m["K"], cam_fixed=cam_fixed, device="cpu"))
     full_err = float(bundle_adjust(full, max_iters=20, cg_iters=50, ftol=1e-6).final_mean_error)
     stats = tstream.stream_bundle_adjust(store, window_blocks=3, sweeps=2, max_iters=20,
                                          cg_iters=50, ftol=1e-6, device="cpu")
