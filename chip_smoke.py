@@ -93,10 +93,19 @@ Phases, each printing JSON lines:
              corner hit rate, the hybrid engine on the trained checkpoint,
              and 20 steps of the full-width net. Held to pins beside the JAX
              trainer's CPU spread (``tools/train_pins.py``).
+13. scenarios — the JAX package's scenario tests at their own scenes,
+             configurations and seeds (a featureless frame, a duplicate
+             frame, two images, degraded imaging for both engines, the
+             20-degree pair and the 10-degree global run, per-image K from
+             EXIF at full and half scale), then the bench sequence through
+             ``SfmEngine`` with per-image K from EXIF (``camera_sensor``);
+             launches counted per scenario; held to the JAX tests' own assertions
+             and the bench run to the engine phase's pins
+             (``tools/scenario_pins.py``).
 
 The line before last is ``{"kernels": [...]}``, with each kernel's launch
 counts on every path (engine, two-view, global, orbit, host, scale, per
-run of the extractors, mesh, compat and train phases), the f32 matcher's row with
+run of the extractors, mesh, compat, train and scenarios phases), the f32 matcher's row with
 its D=256 case (``superpoint_d256``); the last is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line. Without a CUDA card, or without the rest of the repository
@@ -699,6 +708,54 @@ TRAIN_LAUNCHES = {"recipe": {"harris_response_fused": 0, "match_top2_fused": 0},
                   "hybrid": {"harris_response_fused": 0, "match_top2_fused": 1},
                   "full_width": {"harris_response_fused": 0, "match_top2_fused": 0}}
 
+# The scenarios phase: the JAX package's scenario tests, each at its own
+# scene, configuration and seeds and held to its own assertions (cited beside
+# each gate), and the bench sequence with per-image K from EXIF. The EXIF
+# sensor of the bench run is ONE_INCH (12.8 x 9.6 mm), whose 4:3 aspect is
+# the bench's 480x360, so a focal of 520 / 37.5 = 208/15 mm gives the render
+# K (f = 520 px) on both axes.
+EXIF_BENCH_SENSOR = "ONE_INCH"
+EXIF_BENCH_FOCAL_MM = 520.0 / 37.5
+# EXIF keeps FocalLength as a RATIONAL of two uint32s; 208/15 and 26/1 are
+# exact, so a file's K differs from the render K by float64 rounding only
+# (0 seen). Held to the JAX test's rtol (tests/test_exif.py:126, 135, 161).
+EXIF_K_RTOL = 1e-6
+# Each scenario's gates: (row key, operator, limit), the JAX test's own.
+SCENARIO_GATES = {
+    # tests/test_robustness.py:40-42, 46-48
+    "featureless": [("incremental_cameras", "==", 5), ("incremental_recovery_warning", "==", True),
+                    ("incremental_reproj_px", "<", 3.0), ("global_cameras", "==", 6),
+                    ("global_components_warning", "==", True), ("global_reproj_px", "<", 3.0)],
+    # tests/test_robustness.py:63, 67
+    "duplicate": [("incremental_reproj_px", "<", 3.0), ("global_reproj_px", "<", 3.0)],
+    # tests/test_robustness.py:82, 85
+    "two_images": [("incremental_reproj_px", "<", 3.0), ("global_reproj_px", "<", 3.0)],
+    # tests/test_adversarial.py:71-73
+    "degraded_incremental": [("degraded_reproj_px", "<", 2.5), ("degraded_ate_pct", "<", 8.0),
+                             ("degraded_tracks_over_clean", ">", 0.4)],
+    # tests/test_adversarial.py:92, 97
+    "degraded_global": [("reproj_px", "<", 2.0), ("ate_pct", "<", 8.0)],
+    # tests/test_wide_baseline.py:37, 45
+    "pair_20deg": [("matches", ">", 80), ("median_epipolar_px", "<", 1.5)],
+    # tests/test_wide_baseline.py:68-69, 83
+    "global_10deg": [("tracks", ">", 500), ("reproj_px", "<", 1.0), ("ate_pct", "<", 2.0)],
+    # tests/test_exif.py:125-126, 131-135
+    "exif": [("file_K_rel_gap", "<=", EXIF_K_RTOL), ("K_per_camera", "==", True),
+             ("cameras", ">=", 3), ("engine_K_rel_gap", "<=", EXIF_K_RTOL),
+             ("reproj_px", "<", 2.0)],
+    # tests/test_exif.py:159-161
+    "exif_half": [("engine_K_rel_gap", "<=", EXIF_K_RTOL)],
+    # The bench run: the engine phase's pins and the EXIF K (this phase's own).
+    "exif_bench": [("file_K_rel_gap", "<=", EXIF_K_RTOL), ("K_per_camera", "==", True),
+                   ("engine_K_rel_gap", "<=", EXIF_K_RTOL),
+                   ("cameras", "==", PIN_ENGINE_CAMERAS),
+                   ("ate_over_extent", "<=", PIN_ENGINE_ATE),
+                   ("reproj_px", "<=", PIN_ENGINE_REPROJ_PX),
+                   ("tracks", ">=", PIN_ENGINE_MIN_TRACKS)],
+}
+SCENARIOS = tuple(SCENARIO_GATES)
+SCENARIO_BUDGET_S = 120     # the phase's limit on the card, in seconds
+
 
 def corner_hit_rate(detect, draw_shapes, seeds=HIT_SEEDS, hw=TRAIN_HW, px=HIT_PX):
     """The share of ``draw_shapes``' exact corners with a detection within
@@ -991,6 +1048,9 @@ def harris_phase(dev, peaks):
                               "360x480, 327x436, 297x396"),
         compat_path=_path(two_view[:1], "compat NaiveSIFT: one launch, B=1 at 360x480 "
                                         "(ScaleRotInvSIFT: the two_view row's 3 launches per image)"),
+        scenarios_path=_path(engine, "scenarios EXIF bench run: the engine's 3 launches, B=10 at "
+                                     "360x480, 327x436, 297x396 (the JAX tests' scenes: 2 or 4 "
+                                     "levels at 240x320 or 312x472, per the scenario lines)"),
     )
 
 
@@ -1153,6 +1213,8 @@ def match_phase(dev, peaks):
                             "the engine's and the global run's shapes on every rank)", path_keys),
             compat_path=_path([two_view], "compat NNRatioFeatureMatcher: one launch, B=1, "
                               "2499 x 2499 x 128", path_keys),
+            scenarios_path=_path([main], "scenarios EXIF bench run: one launch, B=9 pairs, "
+                                 "2499 x 2499 x 128, the engine's shape", path_keys),
         ))
     return kernels
 
@@ -1377,6 +1439,7 @@ def engine_phase(dev):
     _check(abs(cpu_e1 - e1) <= BA_FINAL_RTOL * e1, f"BA final error card {e1} vs CPU {cpu_e1}")
     _check(cold_e1 == e1, f"BA final error not reproducible on the card: cold {cold_e1}, warm {e1}")
     engine_ba = dict(problem=prob_cpu, points=eng.ba_result.points.cpu().numpy(), e1=e1,
+                     cpu_points=res_cpu.points.numpy(),
                      kw=dict(kw, max_iters=b.max_lm_iters), cameras=cams, tracks=tracks,
                      observations=eng.map.num_observations)
     return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16}), engine_ba
@@ -2749,6 +2812,309 @@ def train_phase(dev, peaks):
     return launches
 
 
+# ------------------------------------------------------------------ scenarios
+
+
+def port_scenario_api(dev):
+    """The port's names that the scenarios call, on ``dev``
+    (``tools/scenario_pins.py`` builds the JAX package's with the same keys)."""
+    import functools
+    import types
+
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch import config
+    from sfmfromscratch_tpu_torch.geometry.camera import SensorType, intrinsics_from_exif
+    from sfmfromscratch_tpu_torch.geometry.epipolar import (
+        eight_point_fundamental,
+        epipolar_distances,
+    )
+    from sfmfromscratch_tpu_torch.pipeline.frontend import FeatureRunner, matches_to_coords
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    return types.SimpleNamespace(
+        config=config, SensorType=SensorType, intrinsics_from_exif=intrinsics_from_exif,
+        SfmEngine=functools.partial(SfmEngine, device=dev),
+        GlobalSfmEngine=functools.partial(GlobalSfmEngine, device=dev),
+        feature_runner=functools.partial(FeatureRunner.run, device=dev),
+        matches_to_coords=matches_to_coords, eight_point_fundamental=eight_point_fundamental,
+        epipolar_distances=epipolar_distances,
+        asarray=lambda a: torch.as_tensor(np.asarray(a, np.float32), device=dev),
+        host=lambda x: x.detach().cpu().numpy())
+
+
+def small_config(api, seed=None):
+    """``tests/test_pipeline.py:27-38`` ``_small_config`` in ``api``'s config
+    classes; ``seed`` replaces its ``config.seed`` (None keeps it)."""
+    c = api.config
+    cfg = c.PipelineConfig(
+        extractor=c.ExtractorConfig(
+            num_interest_points=400, ksize=3, gaussian_size=7, sigma=3.0, alpha=0.05,
+            feature_width=16, pyramid_level=2, pyramid_scale_factor=1.2),
+        matcher=c.MatcherConfig(ratio_threshold=0.85, max_matches=400),
+        ransac=c.RansacConfig(max_iterations=384),
+        ba=c.BundleAdjustConfig(max_lm_iters=15, ftol=1e-6),
+        scale_factor=1.0, dist_threshold=5.0)
+    return _reseed(cfg, seed)
+
+
+def _reseed(cfg, seed):
+    import dataclasses
+
+    return cfg if seed is None else dataclasses.replace(cfg, seed=seed)
+
+
+def _wide_extractor(api):
+    """The extractor of ``tests/test_wide_baseline.py:29-33, 60-64``."""
+    return api.config.ExtractorConfig(
+        num_interest_points=600, ksize=3, gaussian_size=7, sigma=3.0, alpha=0.05,
+        feature_width=16, pyramid_level=2, pyramid_scale_factor=1.2)
+
+
+def _ate_pct(eng, poses):
+    """``tests/test_adversarial.py:19-30``: ATE in percent of the
+    trajectory's extent, the cameras from image 1 when every image has one,
+    else from image 2."""
+    first = 1 if len(eng.global_poses) == len(poses) else 2
+    ate, extent = trajectory_error(eng.global_poses, poses, first_image=first)
+    return 100.0 * ate / extent
+
+
+def _k_gap(Ks, K_ref):
+    """The largest gap of any K in ``Ks`` from ``K_ref``, relative to each
+    entry of ``K_ref`` (``np.testing.assert_allclose(K, K_ref, rtol)`` holds
+    when it is <= rtol; a zero entry must be matched exactly); 0 for none."""
+    import numpy as np
+
+    K_ref = np.asarray(K_ref, np.float64)
+    gaps = [0.0]
+    for K in Ks:
+        d = np.abs(np.asarray(K, np.float64) - K_ref)
+        gaps.append(float(np.max(np.where(K_ref != 0, d / np.where(K_ref != 0, np.abs(K_ref), 1),
+                                          np.where(d > 0, np.inf, 0.0)))))
+    return max(gaps)
+
+
+def _robustness_orbit(work):
+    """``tests/test_robustness.py:19-27``: the 6-view orbit, written; (dir, K)."""
+    import numpy as np
+
+    mod = _render_module()
+    images, K, _, _ = mod.render_sequence(np.random.default_rng(5), num_views=6, num_points=150,
+                                          orbit_step_deg=4.0, img_hw=(240, 320))
+    d = os.path.join(work, "orbit")
+    os.makedirs(d)
+    mod.write_sequence(d, images)
+    return d, K
+
+
+def scenario_run(name, api, work, seed=None):
+    """Run scenario ``name`` as its JAX test does (scene, calls, files),
+    through ``api``'s package, in the empty directory ``work``; ``seed``
+    replaces ``config.seed`` (None keeps the test's). Returns the row of
+    numbers that ``SCENARIO_GATES[name]`` reads."""
+    import shutil
+
+    import numpy as np
+    from PIL import Image
+
+    mod = _render_module()
+    row = {}
+    t0 = time.perf_counter()
+    if name in ("featureless", "duplicate"):
+        # tests/test_robustness.py:30-67
+        orbit, K = _robustness_orbit(work)
+        d = os.path.join(work, "seq")
+        shutil.copytree(orbit, d)
+        if name == "featureless":
+            Image.fromarray(np.full((240, 320), 128, np.uint8)).save(os.path.join(d, "4.jpg"))
+            n, window = 6, 3
+        else:
+            shutil.copy(os.path.join(d, "2.jpg"), os.path.join(d, "3.jpg"))
+            n, window = 5, 2
+        eng = api.SfmEngine(d, n, config=small_config(api, seed), single_K=K,
+                            on_pose_failure="recover")
+        geng = api.GlobalSfmEngine(d, n, config=small_config(api, seed), single_K=K,
+                                   pair_window=window)
+        row.update(incremental_cameras=len(eng.global_poses),
+                   incremental_reproj_px=float(eng.errors_before_after_ba[1]),
+                   incremental_recovery_warning=any("pose recovery engaged" in w
+                                                    for w in eng.warnings),
+                   global_cameras=len(geng.global_poses),
+                   global_reproj_px=float(geng.errors_before_after_ba[1]),
+                   global_components_warning=any("components" in w for w in geng.warnings),
+                   incremental_warnings=list(eng.warnings), global_warnings=list(geng.warnings))
+    elif name == "two_images":
+        # tests/test_robustness.py:70-85
+        images, K, _, _ = mod.render_sequence(np.random.default_rng(5), num_views=2,
+                                              num_points=150, orbit_step_deg=4.0,
+                                              img_hw=(240, 320))
+        d = os.path.join(work, "two")
+        os.makedirs(d)
+        mod.write_sequence(d, images)
+        eng = api.SfmEngine(d, 2, config=small_config(api, seed), single_K=K)
+        geng = api.GlobalSfmEngine(d, 2, config=small_config(api, seed), single_K=K,
+                                   pair_window=2)
+        row.update(incremental_cameras=len(eng.global_poses),
+                   incremental_reproj_px=float(eng.errors_before_after_ba[1]),
+                   global_cameras=len(geng.global_poses),
+                   global_reproj_px=float(geng.errors_before_after_ba[1]))
+    elif name == "degraded_incremental":
+        # tests/test_adversarial.py:47-73, the rng fixture (tests/conftest.py:89-92)
+        rng = np.random.default_rng(5)
+        images, K, poses, _ = mod.render_planes(rng, num_views=6, orbit_step_deg=3.0)
+        runs = {}
+        for label, ims in (("clean", images), ("degraded", mod.degrade_sequence(rng, images))):
+            d = os.path.join(work, label)
+            os.makedirs(d)
+            mod.write_sequence(d, ims)
+            runs[label] = api.SfmEngine(d, 6, config=small_config(api, seed), single_K=K)
+        for label, eng in runs.items():
+            row.update({f"{label}_reproj_px": float(eng.errors_before_after_ba[1]),
+                        f"{label}_ate_pct": _ate_pct(eng, poses),
+                        f"{label}_tracks": int(eng.map.num_tracks),
+                        f"{label}_cameras": len(eng.global_poses)})
+        row["degraded_tracks_over_clean"] = row["degraded_tracks"] / max(row["clean_tracks"], 1)
+    elif name == "degraded_global":
+        # tests/test_adversarial.py:76-97
+        rng = np.random.default_rng(5)
+        images, K, poses, _ = mod.render_planes(rng, num_views=8, orbit_step_deg=8.0)
+        d = os.path.join(work, "seq")
+        os.makedirs(d)
+        mod.write_sequence(d, mod.degrade_sequence(rng, images))
+        eng = api.GlobalSfmEngine(d, 8, config=small_config(api, seed), single_K=K,
+                                  pair_window=3)
+        row.update(reproj_px=float(eng.errors_before_after_ba[1]), ate_pct=_ate_pct(eng, poses),
+                   cameras=len(eng.global_poses), tracks=int(eng.map.num_tracks))
+    elif name in ("pair_20deg", "global_10deg"):
+        # tests/test_wide_baseline.py:12-16 (the scene)
+        images, K, poses, _ = mod.render_planes(np.random.default_rng(0), num_views=12,
+                                                orbit_step_deg=10.0)
+        if name == "pair_20deg":
+            # tests/test_wide_baseline.py:19-45 (no RANSAC: seed has no effect)
+            fr = api.feature_runner(images[0], images[2], _wide_extractor(api), scale_factor=1.0)
+            p1, p2, m = api.matches_to_coords(fr.matches, fr.features1, fr.features2, 600)
+            F = api.eight_point_fundamental(api.asarray(api.host(p1)), api.asarray(api.host(p2)),
+                                            mask=m)
+            dist = api.host(api.epipolar_distances(F, p1, p2))
+            row.update(matches=int(api.host(fr.matches.mask).sum()),
+                       median_epipolar_px=float(np.median(dist[api.host(m).astype(bool)])))
+        else:
+            # tests/test_wide_baseline.py:48-83
+            d = os.path.join(work, "seq")
+            os.makedirs(d)
+            mod.write_sequence(d, images)
+            cfg = _reseed(api.config.PipelineConfig(extractor=_wide_extractor(api),
+                                                    scale_factor=1.0), seed)
+            eng = api.GlobalSfmEngine(d, 12, config=cfg, single_K=K, pair_window=3,
+                                      pair_mode="both", retrieval_k=4,
+                                      output_dir=os.path.join(work, "out"))
+            row.update(tracks=int(eng.map.num_tracks),
+                       reproj_px=float(eng.errors_before_after_ba[1]),
+                       ate_pct=_ate_pct(eng, poses), cameras=len(eng.global_poses))
+    elif name in ("exif", "exif_half", "exif_bench"):
+        sensor = api.SensorType.CROP_FRAME
+        if name == "exif_bench":
+            # The bench sequence (bench_sequence's render) with the EXIF focal
+            # that gives its K on a ONE_INCH sensor, at the bench configuration.
+            sensor = api.SensorType[EXIF_BENCH_SENSOR]
+            n, focal, scale = 10, EXIF_BENCH_FOCAL_MM, 1.0
+            images, K_render, poses, _ = mod.render_sequence(
+                np.random.default_rng(7), num_views=n, num_points=600, img_hw=(360, 480),
+                f=520.0, step_t=(-0.12, 0.01, 0.02), step_r=(0.006, -0.015, 0.004))
+            c = api.config
+            cfg = _reseed(c.PipelineConfig(
+                extractor=c.ExtractorConfig(**BENCH_EXTRACTOR),
+                matcher=c.MatcherConfig(**BENCH_MATCHER), ransac=c.RansacConfig(),
+                ba=c.BundleAdjustConfig(**BENCH_BA), scale_factor=1.0), seed)
+            kw = {}
+        else:
+            # tests/test_exif.py:105-161
+            half = name == "exif_half"
+            n, focal, scale = (3, 26.0, 0.5) if half else (4, 26.0, 1.0)
+            images, K_render, poses, _ = mod.render_sequence(
+                np.random.default_rng(4 if half else 3), num_views=n,
+                num_points=140 if half else 160, img_hw=(312, 472), f=520.0,
+                step_t=(-0.25, 0.02, 0.03), step_r=(0.01, -0.03, 0.006))
+            cfg = _reseed(api.config.PipelineConfig(scale_factor=scale), seed)
+            kw = dict(on_pose_failure="recover") if half else {}
+        d = os.path.join(work, "seq")
+        os.makedirs(d)
+        mod.write_sequence(d, images, exif_focal_mm=focal)
+        file_Ks = [api.intrinsics_from_exif(os.path.join(d, f"{i}.jpg"), sensor)
+                   for i in range(1, n + 1)]
+        eng = api.SfmEngine(d, n, config=cfg, camera_sensor=sensor, **kw)
+        K_scaled = np.diag([scale, scale, 1.0]) @ K_render
+        row.update(file_K_rel_gap=_k_gap(file_Ks, K_render), cameras=len(eng.global_poses),
+                   K_per_camera=len(eng.global_K) == len(eng.global_poses),
+                   engine_K_rel_gap=_k_gap(eng.global_K, K_scaled),
+                   reproj_px=float(eng.errors_before_after_ba[1]),
+                   tracks=int(eng.map.num_tracks))
+        if name == "exif_bench":
+            ate, extent = trajectory_error(eng.global_poses, poses)
+            row.update(ate_over_extent=ate / extent,
+                       finite=bool(np.isfinite(eng.map.points()).all()),
+                       stage_times_s=dict(eng.stage_times))
+    else:
+        raise ValueError(f"no scenario {name!r}")
+    row["wall_s"] = time.perf_counter() - t0
+    return row
+
+
+_OPS = {"<": lambda a, b: a < b, "<=": lambda a, b: a <= b, "==": lambda a, b: a == b,
+        ">=": lambda a, b: a >= b, ">": lambda a, b: a > b}
+
+
+def scenario_failures(name, row):
+    """The gates of ``SCENARIO_GATES[name]`` that ``row`` fails, as text."""
+    return [f"{name}: {key} = {row[key]!r}, want {op} {limit!r}"
+            for key, op, limit in SCENARIO_GATES[name] if not _OPS[op](row[key], limit)]
+
+
+def scenarios_phase(dev):
+    """Every scenario once, through the port on the card, launches counted
+    per scenario; each held to its JAX test's gates (the bench EXIF run to
+    the engine phase's pins and ``ENGINE_LAUNCHES``). Returns the launches.
+
+    The degraded scenarios' 8% ATE gates sit in the tail of every seed
+    spread, at seeds other than the tests' own (on the CPU over
+    ``config.seed`` 0-59 the incremental one goes over at 3 seeds in JAX
+    and 8 in the port, its clean run at 22 and 15; ``tools/scenario_pins.py``)."""
+    import tempfile
+
+    import torch
+
+    api = port_scenario_api(dev)
+    t_phase = time.perf_counter()
+    launches, failed = {}, []
+    for name in SCENARIOS:
+        with tempfile.TemporaryDirectory(prefix=f"chip_smoke_{name}_") as work:
+            _zero_launch_counts()
+            row = scenario_run(name, api, work)
+            torch.cuda.synchronize()
+            launches[name] = _launch_counts()
+        fails = scenario_failures(name, row)
+        _print({"phase": "scenarios", "scenario": name, **row, "launches": launches[name],
+                "gates": SCENARIO_GATES[name], "failed": fails})
+        failed += fails
+        n = launches[name]
+        if name == "exif_bench":
+            if {k: n[k] for k in ENGINE_LAUNCHES} != ENGINE_LAUNCHES:
+                failed.append(f"{name}: launches {n} != {ENGINE_LAUNCHES}")
+        elif n["harris_response_fused"] < 1 or n["match_top2_fused"] < 1:
+            failed.append(f"{name}: a kernel of the path was not launched: {n}")
+        if n["match_top2_fused(bf16=True)"]:
+            failed.append(f"{name}: the bf16 matcher was launched")
+    wall_s = time.perf_counter() - t_phase
+    _print({"phase": "scenarios", "wall_s": wall_s, "budget_s": SCENARIO_BUDGET_S,
+            "failed": failed})
+    _check(not failed, "; ".join(failed))
+    _check(wall_s <= SCENARIO_BUDGET_S, f"scenarios: {wall_s} s > {SCENARIO_BUDGET_S} s")
+    return launches
+
+
 def _run_rank_groups(groups, work, device, limit_s):
     """Start every group of ranks at once, each ``(target, world, args)``
     running ``target(rank, device, *args)`` in ``world`` spawned processes
@@ -2916,6 +3282,11 @@ def _mesh_gloo_rank(rank, dev, work, seq, orbit, K, Ko):
     calls[0] = 0
     res, wall, _ = timed(lambda: bundle_adjust_sharded(problem, mesh, **saved["kw"]))
     out["ba"] = dict(_ba_row(res), wall_s=wall, all_reduces=calls[0])
+    out["ba_prefix"] = []
+    for k in range(1, BA_PREFIX + 1):
+        res = bundle_adjust_sharded(problem, mesh, **dict(saved["kw"], max_iters=k))
+        out["ba_prefix"].append(dict(cost=float(res.final_cost), points=res.points.cpu().numpy()))
+    out["ba64"] = _ba_row(bundle_adjust_sharded(_float64_problem(problem), mesh, **saved["kw"]))
 
     pos, kw = focal_observable_arrays(np.random.default_rng(5))
     ba_kw = dict(max_iters=30, cg_iters=60, ftol=1e-12)
@@ -2990,6 +3361,14 @@ def _mesh_gloo_rank(rank, dev, work, seq, orbit, K, Ko):
     return out
 
 
+def _float64_problem(problem):
+    """``problem`` with its float tensors in float64."""
+    from sfmfromscratch_tpu_torch.ba.problem import BAProblem
+
+    return BAProblem(*(v.double() if v is not None and v.is_floating_point() else v
+                       for v in problem))
+
+
 def _similarity_align(src, dst):
     """``src`` (N, 3) moved by the similarity that best maps it onto
     ``dst`` in least squares (Umeyama)."""
@@ -3018,6 +3397,8 @@ def mesh_phase(dev, engine_ba):
     import numpy as np
     import torch
 
+    from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
+    from sfmfromscratch_tpu_torch.ba.problem import BAProblem
     from sfmfromscratch_tpu_torch.ops.matcher import match_ratio_test
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
@@ -3071,12 +3452,42 @@ def mesh_phase(dev, engine_ba):
     # The engine's problem has a free similarity gauge (image 1 is not in
     # it) and 2-view tracks nearly free along their rays (ROADMAP.md
     # section 3), so the points are compared on tracks of 3 or more views,
-    # after aligning the gauge on them.
+    # after aligning the gauge on them. In float32 the sharded and unsharded
+    # solves differ only in the order of their sums, and their LM paths part
+    # once steps along the weak directions dominate, as the engine phase's
+    # card and CPU solves of this problem do (an H100 run: the 2-rank solve
+    # stopped at 21 iterations and 0.1191 px, the unsharded one at 27 and
+    # 0.1175 px, 94% of these points within 5%). So the float32 solves are
+    # held together after each of the first BA_PREFIX iterations and on
+    # their final errors (BA_FINAL_RTOL, as card and CPU), and the final
+    # state is held on the same problem in float64, where rounding no
+    # longer parts the paths: the same iterations, the same error and these
+    # points within 5%.
     ba_ref = engine_ba
     prob = engine_ba["problem"]
     views = np.bincount(prob.obs_pt[prob.obs_w > 0].numpy(), minlength=prob.num_points)
     multi = views >= 3
     ba_pts = _similarity_align(r0["ba"]["points"][multi], ba_ref["points"][multi])
+    prob_dev = BAProblem(*(None if v is None else v.to(dev) for v in prob))
+    ba_prefix = []
+    for k, sharded in enumerate(r0["ba_prefix"], 1):
+        ref_k = bundle_adjust(prob_dev, **dict(ba_ref["kw"], max_iters=k))
+        ref_pts = ref_k.points.cpu().numpy()[multi]
+        aligned = _similarity_align(sharded["points"][multi], ref_pts)
+        ba_prefix.append(dict(
+            k=k, cost_rel=abs(sharded["cost"] - float(ref_k.final_cost)) / float(ref_k.final_cost),
+            points_3plus_close=bool(np.allclose(aligned, ref_pts, rtol=0.05, atol=0.02)),
+            points_3plus_max_gap_aligned=float(np.abs(aligned - ref_pts).max())))
+    ref64 = bundle_adjust(_float64_problem(prob_dev), **ba_ref["kw"])
+    ref64_pts = ref64.points.cpu().numpy()[multi]
+    b64 = r0["ba64"]
+    ba64_pts = _similarity_align(b64["points"][multi], ref64_pts)
+    ba64 = dict(iterations=b64["iterations"], unsharded_iterations=int(ref64.iterations_used),
+                reproj_after_px=b64["e1"], unsharded_reproj_after_px=float(ref64.final_mean_error),
+                points_3plus_max_gap_aligned=float(np.abs(ba64_pts - ref64_pts).max()),
+                points_3plus_within_tol=float(np.isclose(ba64_pts, ref64_pts, rtol=0.05,
+                                                         atol=0.02).all(1).mean()))
+    cpu_pts = _similarity_align(ba_ref["cpu_points"][multi], ba_ref["points"][multi])
     rows = dict(
         ranks=MESH_RANKS, backend_ranks=r0["backend"], backend_one_rank=nccl["backend"],
         staged_collectives=[], groups_wall_s=groups_s,
@@ -3111,8 +3522,12 @@ def mesh_phase(dev, engine_ba):
         ba_points_max_gap=float(np.abs(r0["ba"]["points"] - ba_ref["points"]).max()),
         ba_points_3plus=int(multi.sum()),
         ba_points_3plus_max_gap_aligned=float(np.abs(ba_pts - ba_ref["points"][multi]).max()),
+        ba_prefix=ba_prefix,
         ba_points_3plus_within_tol=float(np.isclose(ba_pts, ba_ref["points"][multi], rtol=0.05,
                                                     atol=0.02).all(1).mean()),
+        ba_points_3plus_within_tol_cpu_unsharded=float(np.isclose(
+            cpu_pts, ba_ref["points"][multi], rtol=0.05, atol=0.02).all(1).mean()),
+        ba_float64=ba64,
         tp_matches=len(tp_set), phase_s=time.perf_counter() - t_phase,
         note="ranks share one card: these walls check correctness, not scaling",
         pins={"engine": {"cameras": PIN_ENGINE_CAMERAS, "ate_over_extent": PIN_ENGINE_ATE,
@@ -3134,8 +3549,22 @@ def mesh_phase(dev, engine_ba):
             _check(np.array_equal(r["tp_match"][f], tp[f]), f"mesh tp_match: ranks differ in {f}")
     b = r0["ba"]
     _check(abs(b["e1"] - ba_ref["e1"]) < 0.05, f"mesh BA: {b['e1']} px vs unsharded {ba_ref['e1']}")
-    _check(bool(np.allclose(ba_pts, ba_ref["points"][multi], rtol=0.05, atol=0.02)),
-           "mesh BA: points of 3+ views off the unsharded solve's")
+    _check(abs(b["e1"] - ba_ref["e1"]) <= BA_FINAL_RTOL * ba_ref["e1"],
+           f"mesh BA: final error {b['e1']} px vs unsharded {ba_ref['e1']}")
+    _check(ba64["iterations"] == ba64["unsharded_iterations"],
+           f"mesh BA float64: {ba64['iterations']} iterations, unsharded "
+           f"{ba64['unsharded_iterations']}")
+    _check(abs(ba64["reproj_after_px"] - ba64["unsharded_reproj_after_px"])
+           <= 1e-5 * ba64["unsharded_reproj_after_px"],
+           f"mesh BA float64: {ba64['reproj_after_px']} px vs unsharded "
+           f"{ba64['unsharded_reproj_after_px']}")
+    _check(bool(np.allclose(ba64_pts, ref64_pts, rtol=0.05, atol=0.02)),
+           "mesh BA float64: points of 3+ views off the unsharded solve's")
+    for p in ba_prefix:
+        _check(p["cost_rel"] <= BA_PREFIX_RTOL,
+               f"mesh BA: cost after {p['k']} iterations {p['cost_rel']} from the unsharded solve's")
+        _check(p["points_3plus_close"],
+               f"mesh BA: points of 3+ views after {p['k']} iterations off the unsharded solve's")
     sc, scr = r0["selfcal"], r0["selfcal_ref"]
     _check(abs(sc["s"] - 1 / 1.06) < 0.01, f"mesh selfcal: s = {sc['s']}")
     _check(abs(sc["s"] - scr["s"]) < 5e-3, f"mesh selfcal: s {sc['s']} vs unsharded {scr['s']}")
@@ -3224,6 +3653,7 @@ def main(argv) -> int:
         mesh = mesh_phase(dev, engine_ba)
         compat_runs = compat_phase(dev, engine_ba)
         train = train_phase(dev, peaks)
+        scenarios = scenarios_phase(dev)
         kernels[1]["superpoint_d256"] = d256
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
@@ -3236,6 +3666,7 @@ def main(argv) -> int:
             k["launches_mesh_per_rank"] = {run: n.get(k["name"], 0) for run, n in mesh.items()}
             k["launches_compat"] = {run: n.get(k["name"], 0) for run, n in compat_runs.items()}
             k["launches_train"] = {run: n.get(k["name"], 0) for run, n in train.items()}
+            k["launches_scenarios"] = {run: n.get(k["name"], 0) for run, n in scenarios.items()}
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

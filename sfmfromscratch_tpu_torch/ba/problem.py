@@ -149,6 +149,22 @@ def _project(cam: torch.Tensor, X: torch.Tensor, K: torch.Tensor) -> torch.Tenso
     return torch.stack([h[0] / z, h[1] / z], dim=-1)
 
 
+def project_one_dist(cam: torch.Tensor, X: torch.Tensor, K: torch.Tensor, s, k1) -> torch.Tensor:
+    """Projection with a shared focal scale ``s`` and one radial distortion
+    coefficient ``k1`` (normalized coordinates, COLMAP SIMPLE_RADIAL
+    convention): x_d = x_n (1 + k1 r^2), pix = s*f*x_d + c, for a zero-skew
+    K (``problem.py:157-176``). Leading dimensions broadcast; runs on the
+    inputs' device. With s=1, k1=0 it equals ``_project`` up to float
+    reassociation."""
+    p = (so3_exp(cam[..., :3]) @ X[..., None])[..., 0] + cam[..., 3:]
+    z = torch.where(torch.abs(p[..., 2:]) < 1e-12, 1e-12, p[..., 2:])
+    xn = p[..., :2] / z
+    r2 = torch.sum(xn * xn, dim=-1, keepdim=True)
+    xd = xn * (1.0 + k1 * r2)
+    f = torch.stack([K[..., 0, 0], K[..., 1, 1]], dim=-1) * s
+    return f * xd + K[..., :2, 2]
+
+
 def residuals(problem: BAProblem, cam_params: torch.Tensor, points: torch.Tensor) -> torch.Tensor:
     """(O, 2) weighted reprojection residuals (projected - observed)."""
     proj = _project(cam_params[problem.obs_cam], points[problem.obs_pt], problem.K[problem.obs_cam])

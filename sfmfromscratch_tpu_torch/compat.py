@@ -40,7 +40,7 @@ from sfmfromscratch_tpu_torch.geometry.ransac import (
     ransac_essential_pose as _ransac_pose,
     ransac_fundamental as _ransac_f,
 )
-from sfmfromscratch_tpu_torch.ops.lie import so3_exp
+from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log  # noqa: F401  (so3_log: JAX's name)
 from sfmfromscratch_tpu_torch.ops.matcher import match_ratio_test
 from sfmfromscratch_tpu_torch.utils.device import resolve_device
 from sfmfromscratch_tpu_torch.viz.scatter3d import V3D  # re-export (Visualizer.py:7)

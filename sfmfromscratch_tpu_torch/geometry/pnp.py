@@ -18,7 +18,11 @@ from typing import NamedTuple, Optional
 import torch
 
 from sfmfromscratch_tpu_torch.geometry.p3p import p3p_poses
-from sfmfromscratch_tpu_torch.geometry.ransac import draw_uniforms, uniforms_to_indices
+from sfmfromscratch_tpu_torch.geometry.ransac import (  # noqa: F401  (sample_minimal_indices: JAX's name)
+    draw_uniforms,
+    sample_minimal_indices,
+    uniforms_to_indices,
+)
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
 from sfmfromscratch_tpu_torch.ops.smallsvd import nullvec_lstsq, nullvec_normal_eq
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32

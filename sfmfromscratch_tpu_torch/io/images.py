@@ -43,6 +43,16 @@ def save_image(path: str, im: np.ndarray) -> None:
     Image.fromarray(arr).save(path)
 
 
+def to_uint8(im: np.ndarray) -> np.ndarray:
+    """[0,1] float -> [0,255] uint8 (reference ``_single2im``, Runner.py:520-530)."""
+    return (im * 255.0).astype(np.uint8)
+
+
+def to_float(im: np.ndarray) -> np.ndarray:
+    """[0,255] uint8 -> [0,1] float32 (reference ``_im2single``, Runner.py:508-517)."""
+    return im.astype(np.float32) / 255.0
+
+
 def fast_resize(
     input_folder: str, output_folder: str, ratio: float = 0.3, exif: bool = True
 ) -> None:

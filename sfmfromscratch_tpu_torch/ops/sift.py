@@ -28,6 +28,30 @@ _DOM_BINS = 36      # dominant-orientation histogram bins
 _DESC_REGION = _GRID * _CELL  # 16
 
 
+def sobel_exact_zeros(image: torch.Tensor):
+    """(Ix, Iy) of ``ops/image.py::sobel_gradients``, set to exactly +0
+    where the image is constant along the derivative's axis (each of the
+    three pixel pairs that the Sobel differences is equal), and unchanged
+    elsewhere. A convolution leaves rounding residues of either sign there
+    (+-3e-8 seen), whose pattern is its summation order's: torch's CPU
+    convolution adds the taps row by row, XLA's in another order. On an
+    edge along that axis the residue's sign sends ``atan2`` to +pi or to
+    -pi, the last or the first orientation bin. On
+    ``tests/render.py::render_planes`` scenes 12% of the pixels are such,
+    and which pairs of views pass the epipolar gate of
+    ``tests/test_wide_baseline.py`` is then a draw of the residues, in both
+    packages (``tools/sobel_residue_pairs.py``). This is a departure from
+    the JAX package, whose gradients keep the residues: the port's
+    descriptors equal JAX's computed from exact-zero gradients."""
+    Ix, Iy = sobel_gradients(image)
+    x = F.pad(image, (1, 1, 1, 1))
+    eq_x = x[..., :, 2:] == x[..., :, :-2]          # I(r, c+1) == I(r, c-1), rows padded
+    eq_y = x[..., 2:, :] == x[..., :-2, :]          # I(r+1, c) == I(r-1, c), columns padded
+    flat_x = eq_x[..., :-2, :] & eq_x[..., 1:-1, :] & eq_x[..., 2:, :]
+    flat_y = eq_y[..., :, :-2] & eq_y[..., :, 1:-1] & eq_y[..., :, 2:]
+    return torch.where(flat_x, 0.0, Ix), torch.where(flat_y, 0.0, Iy)
+
+
 def _extract_patches(field: torch.Tensor, x: torch.Tensor, y: torch.Tensor, fw: int) -> torch.Tensor:
     """Gather (size, size) windows at (y - fw//2 + 1, x - fw//2 + 1) of a
     zero-padded (..., H, W) field for (..., K) keypoints, size = max(fw, 16).
@@ -111,7 +135,7 @@ def sift_descriptors(
     ``rotation_invariant=False`` reproduces NaiveSIFT, ``True``
     ScaleRotInvSIFT. Invalid keypoints yield zero rows.
     """
-    Ix, Iy = sobel_gradients(image)
+    Ix, Iy = sobel_exact_zeros(image)
     mag = torch.sqrt(Ix * Ix + Iy * Iy)
     ori = torch.atan2(Iy, Ix)
 

@@ -139,6 +139,15 @@ def load_flax_weights(path: str) -> SuperPointNet:
     return net
 
 
+def load_magicleap_weights(pth_path: str) -> SuperPointNet:
+    """The full-width ``SuperPointNet`` with the public ``superpoint_v1.pth``
+    (a MagicLeap-layout torch state dict) loaded (``superpoint.py:87-104``
+    returns the same weights as flax params)."""
+    net = SuperPointNet()
+    net.load_state_dict(torch.load(pth_path, map_location="cpu"))
+    return net
+
+
 def default_weights_path() -> Optional[str]:
     """The synthetically trained TinyPoint checkpoint
     (``weights/tinypoint_synth.npz`` of this package, a byte-equal copy of the
@@ -215,8 +224,7 @@ class SuperPointExtractor:
         if weights_path and str(weights_path).endswith(".npz"):
             self.net = load_flax_weights(weights_path)
         elif weights_path:
-            self.net = SuperPointNet()
-            self.net.load_state_dict(torch.load(weights_path, map_location="cpu"))
+            self.net = load_magicleap_weights(weights_path)
         else:
             self.net = SuperPointNet()
             self.net.reset_parameters_flax(torch.Generator().manual_seed(seed))

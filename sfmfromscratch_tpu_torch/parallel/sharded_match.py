@@ -19,6 +19,7 @@ import torch
 from torch.distributed.device_mesh import DeviceMesh
 
 from sfmfromscratch_tpu_torch.ops.cuda.match_kernel import match_top2_fused
+from sfmfromscratch_tpu_torch.ops.matcher import pairwise_sq_dists  # noqa: F401  (JAX's name)
 from sfmfromscratch_tpu_torch.parallel.mesh import all_gather_cat, mesh_axis
 from sfmfromscratch_tpu_torch.types import MatchResult
 

@@ -75,6 +75,7 @@ from sfmfromscratch_tpu_torch.geometry.triangulation import triangulate_multivie
 from sfmfromscratch_tpu_torch.geometry.two_view import refine_relative_pose
 from sfmfromscratch_tpu_torch.native.bindings import build_tracks
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
+from sfmfromscratch_tpu_torch.ops.matcher import match_pairs_batch  # noqa: F401  (JAX's name)
 from sfmfromscratch_tpu_torch.ops.retrieval import retrieval_similarity
 from sfmfromscratch_tpu_torch.parallel.mesh import MeshAxis, all_gather_cat, is_writer, mesh_axis
 from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine

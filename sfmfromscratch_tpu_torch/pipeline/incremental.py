@@ -66,9 +66,10 @@ from sfmfromscratch_tpu_torch.ba.selfcal import bundle_adjust_selfcal
 from sfmfromscratch_tpu_torch.config import PipelineConfig
 from sfmfromscratch_tpu_torch.geometry.camera import SensorType, intrinsics_from_exif, projection_matrix
 from sfmfromscratch_tpu_torch.geometry.pnp import pnp_ransac
-from sfmfromscratch_tpu_torch.geometry.ransac import (
+from sfmfromscratch_tpu_torch.geometry.ransac import (  # noqa: F401  (ransac_fundamental: JAX's name)
     ransac_essential_pose,
     ransac_essential_pose_adaptive,
+    ransac_fundamental,
     ransac_fundamental_adaptive_batch,
     ransac_fundamental_batch,
 )
@@ -76,7 +77,7 @@ from sfmfromscratch_tpu_torch.geometry.triangulation import refine_points_gn, tr
 from sfmfromscratch_tpu_torch.io import export
 from sfmfromscratch_tpu_torch.io.images import load_image, load_image_u8
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
-from sfmfromscratch_tpu_torch.ops.matcher import match_pairs_batch
+from sfmfromscratch_tpu_torch.ops.matcher import match_pairs_batch, match_ratio_test  # noqa: F401
 from sfmfromscratch_tpu_torch.parallel.mesh import all_gather_cat, is_writer, mesh_axis
 from sfmfromscratch_tpu_torch.parallel.sharded_ba import bundle_adjust_sharded
 from sfmfromscratch_tpu_torch.pipeline.chain_refresh import averaging_refresh

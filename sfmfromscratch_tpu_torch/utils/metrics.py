@@ -1,5 +1,5 @@
-"""Trajectory accuracy measures, numpy only (copy of the alignment and ATE
-functions of ``sfmfromscratch_tpu/utils/metrics.py``).
+"""Metrics, numpy only (copy of ``sfmfromscratch_tpu/utils/metrics.py``):
+a JSON-lines sink and the trajectory accuracy measures.
 
 Monocular reconstructions are defined up to a similarity, so trajectories are
 compared after Umeyama alignment.
@@ -7,9 +7,30 @@ compared after Umeyama alignment.
 
 from __future__ import annotations
 
-from typing import Tuple
+import json
+import sys
+import time
+from typing import Optional, Tuple
 
 import numpy as np
+
+
+class MetricsLogger:
+    """Append-only JSON-lines metrics sink (stderr or file), one
+    ``{"ts", "event", **fields}`` object a line (``metrics.py:15-31``)."""
+
+    def __init__(self, path: Optional[str] = None):
+        self._fh = open(path, "a") if path else sys.stderr
+        self._owns = path is not None
+
+    def log(self, event: str, **fields) -> None:
+        rec = {"ts": time.time(), "event": event, **fields}
+        self._fh.write(json.dumps(rec) + "\n")
+        self._fh.flush()
+
+    def close(self) -> None:
+        if self._owns:
+            self._fh.close()
 
 
 def umeyama_alignment(

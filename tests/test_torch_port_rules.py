@@ -147,6 +147,57 @@ def test_train_tool_imports_no_jax():
     assert f"SAVED [{weights!r}]" in r.stdout, r.stdout
 
 
+def test_scenarios_import_no_jax():
+    """What ``tests/test_torch_scenarios.py`` runs of the port (``chip_smoke``'s
+    scenario names on the CPU and ``tests/render.py``) and ``python
+    tools/scenario_pins.py --package port`` (here one seed of the two-image
+    scenario) load neither ``jax`` nor the JAX package in a fresh
+    interpreter."""
+    code = (
+        "import runpy, sys, torch\n"
+        "torch.set_num_threads(1)\n"
+        "import chip_smoke\n"
+        "from tests import render\n"
+        "api = chip_smoke.port_scenario_api(torch.device('cpu'))\n"
+        "assert api.SfmEngine.keywords == {'device': torch.device('cpu')}\n"
+        "sys.argv = ['scenario_pins.py', '--package', 'port', '--seeds', '0',\n"
+        "            '--scenarios', 'two_images']\n"
+        f"runpy.run_path({str(ROOT / 'tools' / 'scenario_pins.py')!r}, run_name='__main__')\n"
+        f"print('FORBIDDEN', sorted(n for n in sys.modules if n.split('.')[0] in {_FORBIDDEN!r}))\n"
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert "FORBIDDEN []" in r.stdout, r.stdout
+    assert '"failed_seeds": []' in r.stdout and '"package": "port"' in r.stdout, r.stdout
+
+
+def test_train_pins_port_takes_device_and_init(tmp_path, monkeypatch):
+    """``tools/train_pins.py``'s port trainer (``--device``, ``--init``): from
+    the weights in ``--init`` its first step's losses are those of
+    ``make_train_step`` on that net and the seed's first batch; without it
+    the port's seeded draw gives other losses; the run stays on the device
+    it is given (the CPU here) and saves a checkpoint that loads."""
+    monkeypatch.syspath_prepend(str(ROOT / "tools"))
+    import chip_smoke
+    import train_pins
+
+    from sfmfromscratch_tpu_torch.ops import sp_train
+    from sfmfromscratch_tpu_torch.ops.superpoint import load_flax_weights
+
+    monkeypatch.setattr(chip_smoke, "TRAIN_BATCH", 2)
+    init = str(ROOT / "tests" / "data" / "tinypoint_init_key0.npz")
+    ckpt = str(tmp_path / "ckpt.npz")
+    got = train_pins._train_port(0, 2, ckpt, "cpu", init)
+    H, W = chip_smoke.TRAIN_HW
+    _, step = sp_train.make_train_step(load_flax_weights(init))
+    ref = [float(v) for v in step(sp_train.make_batch(np.random.default_rng(0), 2, H, W))]
+    assert len(got) == 2 and list(got[0]) == ref
+    assert next(load_flax_weights(ckpt).parameters()).device.type == "cpu"
+    assert train_pins._train_port(0, 1, ckpt, "cpu")[0] != got[0]
+
+
 def _docstrings(tree):
     """The docstring nodes of a module's AST."""
     out = set()
@@ -200,6 +251,106 @@ def test_port_exports_the_jax_top_level_names():
     np.testing.assert_array_equal(P.numpy(), np.asarray(jpkg.projection_matrix(
         np.eye(3, dtype=np.float32), np.array([0.0, 0.0, 1.0], np.float32),
         np.eye(3, dtype=np.float32) * 2)))
+
+
+# JAX modules with no module at the same path in the port, and what stands in
+# for each.
+_MODULE_STAND_INS = {
+    "ops/pallas/__init__.py": "ops/cuda/__init__.py",
+    "ops/pallas/harris_kernel.py": "ops/cuda/harris_kernel.py",   # K1, K2 -> csrc/harris.cu
+    "ops/pallas/match_kernel.py": "ops/cuda/match_kernel.py",     # K3 -> csrc/match_top2.cu
+    "ops/pallas/support.py": "ops/cuda/build.py",                 # nvcc at first use
+    "utils/cache.py": "ops/cuda/build.py",                        # source-keyed build cache
+}
+# Public names of the JAX package with no counterpart of the same name in the
+# port's module, each with its reason. Names imported from ``typing`` are
+# exempt everywhere: they are annotations, not the module's interface.
+_NAME_EXCEPTIONS = {
+    "mm_f32": "XLA's float32 matmul-precision scope; the port's is "
+              "utils/precision.py::f32_precision (TF32 off)",
+    "jnp_asarray_u32": "a JAX array constructor; the port's checkpoints hold torch tensors",
+    "pallas_tpu_available": "asks for a TPU; the port's wrappers dispatch on the tensor's device",
+    "Mesh": "jax.sharding.Mesh; the port's mesh is torch's DeviceMesh (parallel/mesh.py)",
+    "P": "jax.sharding.PartitionSpec; torch.distributed shards without specs",
+    "shard_map": "JAX's SPMD map; the port's ranks run the code themselves",
+    "TARGETS": "native/build.py's target table; the port's is build.py::SOURCES",
+    "build": "native/build.py's one-target build; the port's is build.py::build_all and load",
+    "put_global": "places a host array on a JAX mesh; the port's ranks hold "
+                  "their tensors (parallel/mesh.py::all_gather_cat)",
+}
+
+
+def _public_names(path: pathlib.Path) -> set:
+    """The public names a module binds at its top level, by AST: functions,
+    classes, assignments and ``from`` imports, also inside top-level ``if``,
+    ``try`` and ``with`` blocks. A name bound to a whole module (``import x
+    as y``, also where a fallback assigns it) and ``__future__`` statements
+    are not names the module defines; names from ``typing`` and imports
+    under ``if TYPE_CHECKING:`` are annotations and exempt."""
+    names, modules = set(), set()
+
+    def visit(body):
+        for node in body:
+            if isinstance(node, ast.Import):
+                modules.update((a.asname or a.name).split(".")[0] for a in node.names)
+            elif isinstance(node, ast.If) and isinstance(node.test, ast.Name) \
+                    and node.test.id == "TYPE_CHECKING":
+                visit(node.orelse)
+            elif isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, (ast.Assign, ast.AnnAssign, ast.AugAssign)):
+                for target in (node.targets if isinstance(node, ast.Assign) else [node.target]):
+                    names.update(n.id for n in ast.walk(target) if isinstance(n, ast.Name))
+            elif isinstance(node, ast.ImportFrom) and node.module not in ("__future__", "typing"):
+                names.update(a.asname or a.name for a in node.names if a.name != "*")
+            elif isinstance(node, (ast.If, ast.Try, ast.With)):
+                for block in ("body", "orelse", "finalbody"):
+                    visit(getattr(node, block, []))
+                for handler in getattr(node, "handlers", []):
+                    visit(handler.body)
+
+    visit(ast.parse(path.read_text(), str(path)).body)
+    return {n for n in names - modules if not n.startswith("_")}
+
+
+def _lazy_names(path: pathlib.Path) -> set:
+    """The names a module serves through a top-level ``__getattr__``
+    (``if name == "X"``)."""
+    out = set()
+    for node in ast.parse(path.read_text(), str(path)).body:
+        if isinstance(node, ast.FunctionDef) and node.name == "__getattr__":
+            for cmp in ast.walk(node):
+                if isinstance(cmp, ast.Compare) and isinstance(cmp.comparators[0], ast.Constant):
+                    out.add(cmp.comparators[0].value)
+    return out
+
+
+def test_public_names_match_jax():
+    """Every public top-level name of every module of the JAX package has a
+    counterpart of the same name in the port's module at the same path
+    (the lazy ``__getattr__`` names too), apart from the listed exceptions;
+    a JAX module without such a port module is listed with its stand-in,
+    which exists. Read by AST: neither package is imported."""
+    jroot = ROOT / "sfmfromscratch_tpu"
+    gaps, used = {}, set()
+    modules = sorted(jroot.rglob("*.py"))
+    assert len(modules) >= 50
+    for path in modules:
+        rel = path.relative_to(jroot).as_posix()
+        port = PORT / rel
+        if not port.exists():
+            assert rel in _MODULE_STAND_INS, f"{rel}: no port module and no stand-in listed"
+            assert (PORT / _MODULE_STAND_INS[rel]).exists(), _MODULE_STAND_INS[rel]
+            continue
+        missing = (_public_names(path) - _public_names(port)) \
+            | (_lazy_names(path) - _lazy_names(port))
+        used |= missing & set(_NAME_EXCEPTIONS)
+        missing -= set(_NAME_EXCEPTIONS)
+        if missing:
+            gaps[rel] = sorted(missing)
+    assert not gaps, gaps
+    assert used == set(_NAME_EXCEPTIONS), set(_NAME_EXCEPTIONS) - used   # no stale exception
+    assert all((jroot / rel).exists() for rel in _MODULE_STAND_INS)
 
 
 def test_fetch_matches_jax():
@@ -283,6 +434,13 @@ def test_entry_points_need_cuda_unless_cpu(monkeypatch):
     assert lam.shape == (E,) and np.isfinite(lam).all()
     net = sp_train.train(steps=1, batch=1, hw=(16, 16), log_every=0, device="cpu")
     assert next(net.parameters()).device.type == "cpu"
+
+    # project_one_dist creates no tensor: it runs on its inputs' device and
+    # asks for no card.
+    from sfmfromscratch_tpu_torch.ba.problem import project_one_dist
+
+    uv = project_one_dist(torch.zeros(6), torch.tensor([0.0, 0.0, 2.0]), torch.eye(3), 1.0, 0.0)
+    assert uv.device.type == "cpu" and uv.tolist() == [0.0, 0.0]
 
 
 def test_engine_needs_cuda_unless_cpu(monkeypatch, tmp_path):

@@ -93,28 +93,33 @@ def _train_jax(seed, steps, ckpt):
     return losses
 
 
-def _train_port(seed, steps, ckpt):
-    """The port's ``train`` loop on the CPU with every step's losses kept."""
+def _train_port(seed, steps, ckpt, device="cpu", init=None):
+    """The port's ``train`` loop on ``device`` with every step's losses kept,
+    from the weights in ``init`` or from the port's draw at ``seed``."""
     import numpy as np
     import torch
 
     from sfmfromscratch_tpu_torch.ops import sp_train
-    from sfmfromscratch_tpu_torch.ops.superpoint import SuperPointNet, save_flax_weights
+    from sfmfromscratch_tpu_torch.ops.superpoint import (
+        SuperPointNet, load_flax_weights, save_flax_weights,
+    )
 
-    net = SuperPointNet.tiny()
-    net.reset_parameters_flax(torch.Generator().manual_seed(seed))
+    if init:
+        net = load_flax_weights(init)
+    else:
+        net = SuperPointNet.tiny()
+        net.reset_parameters_flax(torch.Generator().manual_seed(seed))
+    net.to(device).train()
     H, W = chip_smoke.TRAIN_HW
     rng = np.random.default_rng(seed)
     _, step = sp_train.make_train_step(net)
-    losses = []
-    for _ in range(steps):
-        out = step(sp_train.make_batch(rng, chip_smoke.TRAIN_BATCH, H, W))
-        losses.append(tuple(float(v) for v in out))
-    save_flax_weights(ckpt, net)
-    return losses
+    losses = [torch.stack(step(sp_train.make_batch(rng, chip_smoke.TRAIN_BATCH, H, W)))
+              for _ in range(steps)]
+    save_flax_weights(ckpt, net.cpu())
+    return [tuple(r) for r in torch.stack(losses).tolist()]
 
 
-def _hit_rate(package, ckpt):
+def _hit_rate(package, ckpt, device="cpu"):
     """(hits, corners) of the extractor on ``ckpt`` (None: the committed
     checkpoint)."""
     import numpy as np
@@ -135,17 +140,24 @@ def _hit_rate(package, ckpt):
         from sfmfromscratch_tpu_torch.ops.superpoint import SuperPointExtractor
 
         ext = SuperPointExtractor(ckpt or "auto")
-        to_image = torch.as_tensor
+
+        def to_image(img):
+            return torch.as_tensor(img, device=device)
 
     def detect(img):
         kp = ext(to_image(img), k=chip_smoke.HIT_K).keypoints
-        m = np.asarray(kp.mask)
-        return np.stack([np.asarray(kp.xf)[m], np.asarray(kp.yf)[m]], 1)
+        m = np.asarray(_host(kp.mask))
+        return np.stack([np.asarray(_host(kp.xf))[m], np.asarray(_host(kp.yf))[m]], 1)
 
     return chip_smoke.corner_hit_rate(detect, _draw_shapes)
 
 
-def _hybrid_runs(package, ckpt, engine_seeds):
+def _host(x):
+    """A JAX array as it is, a tensor on the host."""
+    return x.cpu() if hasattr(x, "cpu") else x
+
+
+def _hybrid_runs(package, ckpt, engine_seeds, device="cpu"):
     import functools
 
     if package == "jax":
@@ -162,7 +174,7 @@ def _hybrid_runs(package, ckpt, engine_seeds):
         from sfmfromscratch_tpu_torch.ops.superpoint import make_hybrid_extractor
         from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
-        SfmEngine = functools.partial(SfmEngine, device="cpu")
+        SfmEngine = functools.partial(SfmEngine, device=device)
     bench = PipelineConfig(
         extractor=ExtractorConfig(**chip_smoke.BENCH_EXTRACTOR),
         matcher=MatcherConfig(**chip_smoke.BENCH_MATCHER), ransac=RansacConfig(),
@@ -194,14 +206,17 @@ def _worker(args) -> None:
     with tempfile.TemporaryDirectory(prefix="train_pins_ckpt_") as tmp:
         ckpt = os.path.join(tmp, "tinypoint.npz")
         t0 = time.perf_counter()
-        train = _train_jax if args.package == "jax" else _train_port
-        losses = train(args.worker, chip_smoke.TRAIN_STEPS, ckpt)
+        if args.package == "jax":
+            losses = _train_jax(args.worker, chip_smoke.TRAIN_STEPS, ckpt)
+        else:
+            losses = _train_port(args.worker, chip_smoke.TRAIN_STEPS, ckpt, args.device, args.init)
         train_s = time.perf_counter() - t0
         last = losses[-chip_smoke.TRAIN_LAST:]
-        hits, corners = _hit_rate(args.package, ckpt)
-        hybrid = _hybrid_runs(args.package, ckpt, args.engine_seeds)
+        hits, corners = _hit_rate(args.package, ckpt, args.device)
+        hybrid = _hybrid_runs(args.package, ckpt, args.engine_seeds, args.device)
     print(json.dumps(dict(
-        seed=args.worker, package=args.package, steps=chip_smoke.TRAIN_STEPS, train_s=train_s,
+        seed=args.worker, package=args.package, device=args.device, init=args.init,
+        steps=chip_smoke.TRAIN_STEPS, train_s=train_s,
         first_loss=losses[0], last_loss=losses[-1],
         last_mean_ld=sum(r[1] for r in last) / len(last),
         last_mean_ldesc=sum(r[2] for r in last) / len(last),
@@ -213,12 +228,16 @@ def main():
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2])
     ap.add_argument("--engine-seeds", type=int, nargs="+", default=list(range(10)))
     ap.add_argument("--package", choices=["jax", "port"], default="jax")
+    ap.add_argument("--device", default="cpu", help="the port's device (cpu or cuda)")
+    ap.add_argument("--init", default=None, help="the port's initial weights (npz)")
     ap.add_argument("--worker", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--write-init", default=None)
     args = ap.parse_args()
     if args.write_init:
         _write_init(args.write_init)
         return
+    if args.package == "jax" and (args.device != "cpu" or args.init):
+        ap.error("--device and --init apply to --package port")
     if args.worker is not None:
         _worker(args)
         return
@@ -226,7 +245,8 @@ def main():
     procs = []
     for seed in args.seeds:
         cmd = [sys.executable, os.path.abspath(__file__), "--worker", str(seed),
-               "--package", args.package,
+               "--package", args.package, "--device", args.device,
+               *(["--init", args.init] if args.init else []),
                "--engine-seeds", *map(str, args.engine_seeds)]
         procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, text=True))
     rows = []
@@ -236,7 +256,7 @@ def main():
             raise SystemExit(f"worker failed ({p.returncode})")
         print(out, end="", flush=True)
         rows.append(json.loads(out.strip().splitlines()[-1]))
-    committed = _hit_rate(args.package, None)
+    committed = _hit_rate(args.package, None, args.device)
     runs = [h for r in rows for h in r["hybrid"] if "error" not in h]
     spread = dict(
         last_mean_ld=[min(r["last_mean_ld"] for r in rows), max(r["last_mean_ld"] for r in rows)],
@@ -257,7 +277,8 @@ def main():
                               reproj_px=1.6 * spread["hybrid_reproj_px"][1],
                               min_tracks=int(2 * spread["hybrid_tracks"][0] // 3)))
     print(json.dumps({"seeds": args.seeds, "engine_seeds": args.engine_seeds,
-                      "package": args.package, f"{args.package}_cpu_range": spread,
+                      "package": args.package, "device": args.device, "init": args.init,
+                      f"{args.package}_{args.device}_range": spread,
                       "hybrid_failed": [[r["seed"], h["engine_seed"]] for r in rows
                                         for h in r["hybrid"] if "error" in h],
                       "committed_hit_rate": committed[0] / max(committed[1], 1),
