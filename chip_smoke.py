@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA card.
 
-    python3 chip_smoke.py [--only-kernels]
+    python3 chip_smoke.py [--only-kernels | --ladder-global]
 
 Phases, each printing JSON lines:
 
@@ -11,7 +11,10 @@ Phases, each printing JSON lines:
 2. kernels — each CUDA kernel against its plain PyTorch version on the card,
              at the engine's shapes (Harris B=10 per pyramid level, matcher
              B=9 pairs, f32 and bf16 modes), the two-view shapes, the extra
-             regimes below and an exact-tie case, beside its bound, the plain
+             regimes below, the ladder's ``L3h`` shapes (Harris B=20 at
+             960x1280 and 800x1066, the matcher at B=19 x 4000 x 4000, with
+             the card's peak memory of the pyramid, SIFT and the plain
+             matcher there) and an exact-tie case, beside its bound, the plain
              version and one library call. Three times per kernel and shape:
              ``device_ms``, the kernel's own time from ``torch.profiler``
              (its CUDA activity per call over a warm window; the number the
@@ -103,9 +106,23 @@ Phases, each printing JSON lines:
              and the bench run to the engine phase's pins
              (``tools/scenario_pins.py``).
 
+14. ladder  — the JAX package's scale ladder (``benchmarks/ladder.py``) at its
+             own configurations and scenes, none cut: ``SfmEngine`` on the
+             47- and 100-view chains (``L3``, ``L4``), the 100-view chain
+             with ``chain_refresh="averaging"`` (``L4r``) and the 960x1280
+             rungs at 2,500 and 4,000 keypoints (``L2h``, ``L3h``); with
+             ``--ladder-global`` also ``GlobalSfmEngine`` on the 47-view
+             orbit (``L3g``) and the 1,000-view keyframed planes orbit
+             (``L5``). Every scene is rendered before the runs (in parallel
+             processes); each rung runs
+             once, its launches counted; held to pins beside the JAX
+             package's CPU spread (``tools/ladder_pins.py``), each row with
+             its wall, stage times and the final BA's backend (dense or PCG).
+
 The line before last is ``{"kernels": [...]}``, with each kernel's launch
 counts on every path (engine, two-view, global, orbit, host, scale, per
-run of the extractors, mesh, compat, train and scenarios phases), the f32 matcher's row with
+run of the extractors, mesh, compat, train, scenarios and ladder phases, and
+each kernel's ``ladder_path`` at ``L3h``'s shapes), the f32 matcher's row with
 its D=256 case (``superpoint_d256``); the last is
 ``{"ok": true, "device": {...}}``. Any failed check exits non-zero with no
 result line. Without a CUDA card, or without the rest of the repository
@@ -114,6 +131,7 @@ beside this file, it exits non-zero at once.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
@@ -756,6 +774,75 @@ SCENARIO_GATES = {
 SCENARIOS = tuple(SCENARIO_GATES)
 SCENARIO_BUDGET_S = 120     # the phase's limit on the card, in seconds
 
+# The ladder phase: the JAX package's scale ladder (benchmarks/ladder.py:
+# 167-186), each rung at the ladder's own configuration (ladder.py:53-69,
+# ``_cfg(kp)``), engine call and scene, none cut. Every scene is drawn from
+# default_rng(7): the sprite orbit of ``_scene`` (300 points, 360x480,
+# f=520; ladder.py:22-32), the planes of ``_scene_planes`` (240x320, f=400;
+# ladder.py:35-50) and of ``run_incremental_planes`` (f = 1.2 * W / 2;
+# ladder.py:128-164). (engine, views, keypoints, engine keywords, renderer,
+# renderer keywords.)
+LADDER_RUNGS = {
+    # config 3: the 47-view chain (ladder.py:181)
+    "L3": ("SfmEngine", 47, 600, {}, "render_sequence",
+           dict(num_views=47, num_points=300, img_hw=(360, 480), f=520.0, orbit_step_deg=0.8)),
+    # config 4: the 100-view chain (ladder.py:183)
+    "L4": ("SfmEngine", 100, 600, {}, "render_sequence",
+           dict(num_views=100, num_points=300, img_hw=(360, 480), f=520.0, orbit_step_deg=0.5)),
+    # config 4 in the accuracy configuration (docs/PERFORMANCE.md:159)
+    "L4r": ("SfmEngine", 100, 600, {"chain_refresh": "averaging"}, "render_sequence",
+            dict(num_views=100, num_points=300, img_hw=(360, 480), f=520.0, orbit_step_deg=0.5)),
+    # config 2h and 3h, the hi-res rungs (ladder.py:174-179)
+    "L2h": ("SfmEngine", 10, 2500, {"chain_refresh": "averaging"}, "render_planes",
+            dict(num_views=10, img_hw=(960, 1280), f=768.0, orbit_step_deg=2.0)),
+    "L3h": ("SfmEngine", 20, 4000, {"chain_refresh": "averaging"}, "render_planes",
+            dict(num_views=20, img_hw=(960, 1280), f=768.0, orbit_step_deg=1.5)),
+    # config 3g, the 47-view global orbit (ladder.py:182)
+    "L3g": ("GlobalSfmEngine", 47, 600, {"pair_window": 3}, "render_sequence",
+            dict(num_views=47, num_points=300, img_hw=(360, 480), f=520.0, orbit_step_deg=4.0)),
+    # config 5, the 1000-view keyframed planes orbit (ladder.py:184-186)
+    "L5": ("GlobalSfmEngine", 1000, 400, {"pair_window": 3, "keyframe_step": "auto"},
+           "render_planes", dict(num_views=1000, img_hw=(240, 320), f=400.0, orbit_step_deg=0.36)),
+}
+LADDER_DEFAULT = ("L3", "L4", "L4r", "L2h", "L3h")
+LADDER_BA_AGAIN = ("L4",)          # the largest PCG problem, solved again (ladder_ba_again)
+LADDER_GLOBAL = ("L3g", "L5")      # only under --ladder-global
+# Launches per rung: Harris once per pyramid level (2) for the whole image
+# batch; the matcher once for the chain's consecutive pairs (B = views - 1),
+# once for the global run's window pairs, and three times on the keyframed
+# run (the flow selection, the keyframe windows, the registration pairs).
+LADDER_LAUNCHES = {name: {"harris_response_fused": 2, "match_top2_fused": 1}
+                   for name in LADDER_RUNGS}
+LADDER_LAUNCHES["L5"] = {"harris_response_fused": 2, "match_top2_fused": 3}
+# Pins beside the JAX package's CPU spread over config.seed 0-4
+# (tools/ladder_pins.py; every run registered every camera): incremental
+# rungs 1.6x the worst ATE over extent and post-BA error and two thirds of
+# the fewest tracks, global rungs 5x, 1.25x and 85% (rounded up to three
+# digits, tracks down). JAX's ATE over extent, error (px) and tracks:
+#   L3   0.2044-0.2596, 0.386-0.570, 3982-4640 (the plain chain bends on
+#        orbits; final BA on PCG, 48 padded cameras)
+#   L4   0.2420-0.2823, 0.474-0.834, 9643-10203 (PCG)
+#   L4r  0.0059-0.0137, 0.181-0.192, 9643-10203 (PCG)
+#   L2h  0.0176-0.1088, 0.133-0.531, 4070-4822 (dense)
+#   L3h  0.0127-0.0366, 0.153-0.691, 12333-15100 (dense)
+#   L3g  0.0011-0.0017, 0.242-0.251, 2515-2563 (PCG)
+#   L5   0.0029-0.0035, 0.347-0.349, 3025-3074 (PCG; 44 keyframes)
+PIN_LADDER = {
+    "L3": dict(ate_over_extent=0.416, reproj_px=0.912, min_tracks=2654),
+    "L4": dict(ate_over_extent=0.452, reproj_px=1.34, min_tracks=6428),
+    "L4r": dict(ate_over_extent=0.0219, reproj_px=0.307, min_tracks=6428),
+    "L2h": dict(ate_over_extent=0.175, reproj_px=0.851, min_tracks=2713),
+    "L3h": dict(ate_over_extent=0.0587, reproj_px=1.11, min_tracks=8222),
+    "L3g": dict(ate_over_extent=0.0087, reproj_px=0.314, min_tracks=2137),
+    "L5": dict(ate_over_extent=0.0177, reproj_px=0.437, min_tracks=2571),
+}
+# The default rungs' engine walls together, in seconds: 67.6-80.0 s in two
+# runs on an NVIDIA H100 80GB HBM3 at 700 W (L3 10.9-15.6, L4 27.4-28.4, L4r
+# 21.0-26.7, L2h 2.7-3.6, L3h 5.6-5.7), with room for the host's spread (the
+# host-bound engines have run 1.7x apart between calls). The renders (~80 s,
+# in parallel) come on top.
+LADDER_BUDGET_S = 160
+
 
 def corner_hit_rate(detect, draw_shapes, seeds=HIT_SEEDS, hw=TRAIN_HW, px=HIT_PX):
     """The share of ``draw_shapes``' exact corners with a detection within
@@ -983,6 +1070,39 @@ def _path(rows, per, keys=("device_ms", "call_ms", "bound_ms", "plain_ms")):
     return dict(per=per, **{k: _sum(rows, k) for k in keys})
 
 
+def _harris_check(HK, img, G, sigma, alpha):
+    """The Harris kernel against its plain version on ``img`` (B, H, W):
+    finite, max |kernel - plain| <= HARRIS_TOL * max |plain R|."""
+    import torch
+
+    B, H, W = img.shape
+    got = HK.harris_response_fused(img, G, sigma, alpha)
+    ref = HK.harris_response(img, G, sigma, alpha)
+    torch.cuda.synchronize()
+    err = float((got - ref).abs().max())
+    scale = float(ref.abs().max())
+    _check(bool(torch.isfinite(got).all()), f"harris {B}x{H}x{W}: non-finite")
+    _check(err <= HARRIS_TOL * scale, f"harris {B}x{H}x{W}: max err {err} > {HARRIS_TOL} * {scale}")
+    return dict(shape=[B, H, W], max_abs_err=err, max_abs_R=scale)
+
+
+def _harris_case(HK, gen, dev, B, H, W, G, sigma, alpha, peaks):
+    """The Harris kernel against its plain version on a random (B, H, W)
+    stack, with its device, graph and call times, the plain version's and
+    its bound (8 bytes a pixel, or the stencil's flops)."""
+    import torch
+
+    img = torch.rand((B, H, W), generator=gen, device=dev)
+    row = _harris_check(HK, img, G, sigma, alpha)
+    px = B * H * W
+    row.update(_kernel_times(lambda: HK.harris_response_fused(img, G, sigma, alpha),
+                             lambda: HK._launch(img, G, sigma, alpha), ("harris_kernel",)))
+    row.update(plain_ms=_cuda_ms(lambda: HK.harris_response(img, G, sigma, alpha), reps=5),
+               bound_ms=max(8.0 * px / peaks["bytes_per_s"],
+                            px * (16 + 12 * G) / peaks["fp32_flops"]) * 1e3)
+    return row
+
+
 def harris_phase(dev, peaks):
     """Harris kernel vs plain at the engine's pyramid levels (B=10), the
     two-view's (B=1), the global engine's and the orbit's (B=20), the
@@ -993,30 +1113,13 @@ def harris_phase(dev, peaks):
     from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
 
     G, sigma, alpha = 7, 6.0, 0.05
-    bw, fl = peaks["bytes_per_s"], peaks["fp32_flops"]
     gen = torch.Generator(device=dev).manual_seed(0)
     # The last case's width is not a multiple of 4: the kernel's scalar path.
     cases = [(10, H, W) for H, W in ENGINE_LEVELS] + [(1, H, W) for H, W in ENGINE_LEVELS] \
         + [(20, H, W) for H, W in ENGINE_LEVELS] + [(20, *ORBIT_LEVELS[1])] \
         + [(1, 960, 1280), (2, 45, 61)] + [(SCALE_VIEWS, H, W) for H, W in ENGINE_LEVELS] \
         + [(10 // MESH_RANKS, H, W) for H, W in ENGINE_LEVELS]
-    rows = []
-    for B, H, W in cases:
-        img = torch.rand((B, H, W), generator=gen, device=dev)
-        got = HK.harris_response_fused(img, G, sigma, alpha)
-        ref = HK.harris_response(img, G, sigma, alpha)
-        torch.cuda.synchronize()
-        err = float((got - ref).abs().max())
-        scale = float(ref.abs().max())
-        _check(bool(torch.isfinite(got).all()), f"harris {B}x{H}x{W}: non-finite")
-        _check(err <= HARRIS_TOL * scale, f"harris {B}x{H}x{W}: max err {err} > {HARRIS_TOL} * {scale}")
-        px = B * H * W
-        row = dict(shape=[B, H, W], max_abs_err=err, max_abs_R=scale)
-        row.update(_kernel_times(lambda: HK.harris_response_fused(img, G, sigma, alpha),
-                                 lambda: HK._launch(img, G, sigma, alpha), ("harris_kernel",)))
-        row.update(plain_ms=_cuda_ms(lambda: HK.harris_response(img, G, sigma, alpha), reps=5),
-                   bound_ms=max(8.0 * px / bw, px * (16 + 12 * G) / fl) * 1e3)
-        rows.append(row)
+    rows = [_harris_case(HK, gen, dev, B, H, W, G, sigma, alpha, peaks) for B, H, W in cases]
     _print({"phase": "harris", "tol_rel": HARRIS_TOL, "cases": rows})
 
     engine, two_view, global_ = rows[:3], rows[3:6], rows[6:9]
@@ -1445,6 +1548,13 @@ def engine_phase(dev):
     return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16}), engine_ba
 
 
+def _engine_ba_kw(ba_cfg):
+    """The LM keywords of the engines' final BA at ``ba_cfg``, but its
+    iteration cap."""
+    return dict(cg_iters=60, init_damping=ba_cfg.init_damping, damping_up=ba_cfg.damping_up,
+                damping_down=ba_cfg.damping_down, ftol=ba_cfg.ftol, huber_delta=ba_cfg.huber_delta)
+
+
 def _resolve_ba_on_cpu(eng, ba_cfg):
     """The card's last BA problem of ``eng`` solved again on the CPU: the
     costs after each of the first 6 iterations on both sides, and the CPU's
@@ -1453,8 +1563,7 @@ def _resolve_ba_on_cpu(eng, ba_cfg):
     from sfmfromscratch_tpu_torch.ba.problem import BAProblem
 
     prob_cpu = BAProblem(*(None if v is None else v.cpu() for v in eng.ba_problem))
-    kw = dict(cg_iters=60, init_damping=ba_cfg.init_damping, damping_up=ba_cfg.damping_up,
-              damping_down=ba_cfg.damping_down, ftol=ba_cfg.ftol, huber_delta=ba_cfg.huber_delta)
+    kw = _engine_ba_kw(ba_cfg)
     prefix = []
     for k in range(1, 7):
         card = float(bundle_adjust(eng.ba_problem, max_iters=k, **kw).final_cost)
@@ -3115,6 +3224,350 @@ def scenarios_phase(dev):
     return launches
 
 
+# ------------------------------------------------------------------ ladder
+
+
+def port_ladder_api(dev):
+    """The port's names that the ladder's rungs call, on ``dev``
+    (``tools/ladder_pins.py`` builds the JAX package's with the same keys).
+    ``final_ba(eng)`` reads the backend, LM iterations and padded counts of
+    the engine's last bundle adjustment; ``peak_reset``/``peak_bytes`` the
+    card's allocator peak (None on the CPU)."""
+    import functools
+    import types
+
+    import torch
+
+    from sfmfromscratch_tpu_torch import config
+    from sfmfromscratch_tpu_torch.ba.lm import resolve_dense
+    from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
+    from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
+
+    def final_ba(eng):
+        p = eng.ba_problem
+        dense = resolve_dense(None, p.num_cameras, p.num_points)
+        return dict(backend="dense" if dense else "pcg",
+                    iterations=int(eng.ba_result.iterations_used),
+                    padded=[p.num_cameras, p.num_points, p.num_obs])
+
+    cuda = dev.type == "cuda"
+    return types.SimpleNamespace(
+        config=config, final_ba=final_ba,
+        SfmEngine=functools.partial(SfmEngine, device=dev),
+        GlobalSfmEngine=functools.partial(GlobalSfmEngine, device=dev),
+        sync=torch.cuda.synchronize if cuda else (lambda: None),
+        peak_reset=torch.cuda.reset_peak_memory_stats if cuda else (lambda: None),
+        peak_bytes=torch.cuda.max_memory_allocated if cuda else (lambda: None))
+
+
+def ladder_config(api, kp, seed=None):
+    """``benchmarks/ladder.py:53-69`` ``_cfg(kp)`` in ``api``'s config
+    classes; ``seed`` replaces its ``config.seed`` (None keeps it)."""
+    c = api.config
+    cfg = c.PipelineConfig(
+        extractor=c.ExtractorConfig(
+            num_interest_points=kp, ksize=3, gaussian_size=7, sigma=3.0, alpha=0.05,
+            feature_width=16, pyramid_level=2, pyramid_scale_factor=1.2),
+        matcher=c.MatcherConfig(ratio_threshold=0.85, max_matches=kp),
+        ransac=c.RansacConfig(), ba=c.BundleAdjustConfig(), scale_factor=1.0)
+    return _reseed(cfg, seed)
+
+
+def ladder_scene(name, work):
+    """Render rung ``name``'s scene from default_rng(7) and write it as
+    ``1.jpg..N.jpg`` into ``work``; returns dict(dir, K, poses, render_s),
+    the render and the writes timed apart from the engine's run."""
+    import numpy as np
+
+    mod = _render_module()
+    renderer, kw = LADDER_RUNGS[name][4:]
+    t0 = time.perf_counter()
+    images, K, poses, _ = getattr(mod, renderer)(np.random.default_rng(7), **kw)
+    mod.write_sequence(work, images)
+    return dict(dir=work, K=K, poses=poses, render_s=time.perf_counter() - t0)
+
+
+def ladder_scenes(names, work):
+    """``ladder_scene`` of every rung of ``names``, each distinct scene once
+    (``L4`` and ``L4r`` share one), all rendered at once in spawned
+    processes under ``work``: the renderer is host numpy, about a minute for
+    twenty 960x1280 views. Returns (scene per rung, wall seconds)."""
+    import concurrent.futures
+    import multiprocessing as mp
+
+    t0 = time.perf_counter()
+    keys = {name: repr(LADDER_RUNGS[name][4:]) for name in names}   # renderer and keywords
+    jobs = {}
+    with concurrent.futures.ProcessPoolExecutor(
+            max_workers=len(set(keys.values())), mp_context=mp.get_context("spawn")) as pool:
+        for name in names:
+            if keys[name] not in jobs:
+                d = os.path.join(work, name)
+                os.makedirs(d)
+                jobs[keys[name]] = pool.submit(ladder_scene, name, d)
+        scenes = {name: jobs[keys[name]].result() for name in names}
+    return scenes, time.perf_counter() - t0
+
+
+def ladder_ba_again(eng):
+    """The card's final BA problem of ``eng`` solved again on the card at
+    the engine's settings, where the sorted segment sums must give the run's
+    error bit for bit."""
+    from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
+
+    b = eng.config.ba
+    t0 = time.perf_counter()
+    again = bundle_adjust(eng.ba_problem, max_iters=b.max_lm_iters, **_engine_ba_kw(b))
+    return dict(run_px=float(eng.errors_before_after_ba[1]),
+                card_again_px=float(again.final_mean_error), card_s=time.perf_counter() - t0,
+                card_iterations=again.iterations_used)
+
+
+def ladder_run(name, api, scene, seed=None, keep=None):
+    """Run rung ``name`` through ``api``'s engine on ``scene``
+    (``ladder_scene``) as ``benchmarks/ladder.py`` calls it; ``seed``
+    replaces ``config.seed``; ``keep``, a dict, receives the engine.
+    Returns the rung's row: cameras, ATE over extent (``trajectory_error``;
+    the chain's cameras start at image 2), errors before and after BA,
+    tracks and observations, the engine's wall and stage times, the final
+    BA's backend and LM iterations."""
+    import numpy as np
+
+    engine, n, kp, kw = LADDER_RUNGS[name][:4]
+    cfg = ladder_config(api, kp, seed)
+    api.peak_reset()
+    t0 = time.perf_counter()
+    eng = getattr(api, engine)(scene["dir"], n, config=cfg, single_K=scene["K"], **kw)
+    api.sync()
+    wall = time.perf_counter() - t0
+    if keep is not None:
+        keep["engine"] = eng
+    first = 1 if len(eng.global_poses) == n else 2
+    ate, extent = trajectory_error(eng.global_poses, scene["poses"], first_image=first)
+    e0, e1 = eng.errors_before_after_ba
+    _, tracks, _ = eng.map.observations()
+    kfs = getattr(eng, "keyframes", None)
+    peak = api.peak_bytes()
+    return dict(
+        rung=name, engine=engine, views=n, keypoints=kp, seed=cfg.seed,
+        cameras=len(eng.global_poses), want_cameras=n if engine == "GlobalSfmEngine" else n - 1,
+        ate_over_extent=ate / extent, reproj_before_px=float(e0), reproj_after_px=float(e1),
+        tracks=int(eng.map.num_tracks),
+        tracks_3plus=int((np.bincount(tracks, minlength=eng.map.num_tracks) >= 3).sum()),
+        observations=int(eng.map.num_observations), keyframes=None if kfs is None else len(kfs),
+        kp_capacity=len(eng._kp_tracks[1]), max_points=cfg.max_points,
+        wall_s=wall, render_s=scene["render_s"], final_ba=api.final_ba(eng),
+        stage_times_s={k: float(v) for k, v in eng.stage_times.items()},
+        peak_mib=None if peak is None else peak / 2 ** 20,
+        warnings=list(eng.warnings)[:8], num_warnings=len(eng.warnings),
+        finite=bool(np.isfinite(eng.map.points()).all()
+                    and all(np.isfinite(np.hstack(p)).all() for p in eng.global_poses)))
+
+
+def ladder_failures(name, row):
+    """The pins of ``PIN_LADDER[name]`` (and every camera, finite values, a
+    track table not full) that ``row`` fails, as text."""
+    pins = PIN_LADDER[name]
+    fails = []
+    if row["cameras"] != row["want_cameras"]:
+        fails.append(f"{name}: {row['cameras']} cameras, want {row['want_cameras']}")
+    if not row["finite"]:
+        fails.append(f"{name}: non-finite poses or points")
+    if row["tracks"] >= row["max_points"]:
+        fails.append(f"{name}: the track table is full ({row['max_points']}): new tracks "
+                     "were dropped")
+    if not row["ate_over_extent"] <= pins["ate_over_extent"]:
+        fails.append(f"{name}: ATE over extent {row['ate_over_extent']} > "
+                     f"{pins['ate_over_extent']}")
+    if not row["reproj_after_px"] <= pins["reproj_px"]:
+        fails.append(f"{name}: post-BA error {row['reproj_after_px']} px > {pins['reproj_px']}")
+    if not row["tracks"] >= pins["min_tracks"]:
+        fails.append(f"{name}: {row['tracks']} tracks < {pins['min_tracks']}")
+    return fails
+
+
+def _peak_mib(fn):
+    """The card allocator's peak above what was allocated before, in MiB,
+    over one call of ``fn``."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+
+@contextlib.contextmanager
+def ladder_launch_shapes():
+    """Yields a set that, while the context is open, records the arguments
+    of every call of the port's Harris and matcher wrappers that the
+    engines reach (``ops/harris.py`` imports ``harris_response_fused`` at
+    each call, ``ops/matcher.py`` holds ``match_top2_fused``): ("harris",
+    (B, H, W), gaussian size, sigma, alpha) and ("match", (B, n1, n2, D),
+    masked, bf16). Each call goes on to the wrapper unchanged, which counts
+    its launch as before; leaving the context puts the wrappers back."""
+    from sfmfromscratch_tpu_torch.ops import matcher
+    from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
+
+    shapes = set()
+    harris, match = HK.harris_response_fused, matcher.match_top2_fused
+
+    def recorded_harris(image, gaussian_size, sigma, alpha):
+        shape = tuple(image.shape) if image.dim() == 3 else (1, *image.shape)
+        shapes.add(("harris", shape, gaussian_size, float(sigma), float(alpha)))
+        return harris(image, gaussian_size, sigma, alpha)
+
+    def recorded_match(d1, d2, mask2=None, bf16=False):
+        B = d1.shape[0] if d1.dim() == 3 else 1
+        shapes.add(("match", (B, d1.shape[-2], d2.shape[-2], d1.shape[-1]),
+                     mask2 is not None, bool(bf16)))
+        return match(d1, d2, mask2, bf16)
+
+    HK.harris_response_fused = recorded_harris
+    matcher.match_top2_fused = recorded_match
+    try:
+        yield shapes
+    finally:
+        HK.harris_response_fused = harris
+        matcher.match_top2_fused = match
+
+
+def ladder_shape_checks(dev, shapes):
+    """Both kernels against their plain versions on the card, on random
+    inputs at each of ``shapes`` (``ladder_launch_shapes``): Harris to
+    HARRIS_TOL, the matcher as ``_match_check`` holds it (a masked
+    database drops 5% of its rows). Untimed; returns one row a shape."""
+    import torch
+
+    from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
+    from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+
+    gen = torch.Generator(device=dev).manual_seed(17)
+    rows = []
+    for case in sorted(shapes):
+        if case[0] == "harris":
+            _, shape, G, sigma, alpha = case
+            img = torch.rand(shape, generator=gen, device=dev)
+            row = _harris_check(HK, img, G, sigma, alpha)
+            row.update(kernel="harris_response_fused", G=G, sigma=sigma, alpha=alpha)
+        else:
+            _, (B, n1, n2, D), masked, bf16 = case
+            d1 = _descriptors(gen, dev, B, n1, D)
+            d2 = _descriptors(gen, dev, B, n2, D)
+            mask2 = torch.rand((B, n2), generator=gen, device=dev) > 0.05 if masked else None
+            kw = {"bf16": True} if bf16 else {}
+            row, _, _ = _match_check(f"match ladder {B}x{n1}x{n2}x{D}", MK, d1, d2, mask2, kw)
+            row.update(kernel="match_top2_fused(bf16=True)" if bf16 else "match_top2_fused",
+                       shape=[B, n1, n2, D], masked=masked)
+        rows.append(row)
+    torch.cuda.empty_cache()
+    return rows
+
+
+def ladder_kernels(dev, peaks):
+    """Both kernels against their plain versions at ``L3h``'s shapes: Harris
+    at B=20 on its two pyramid levels (960x1280 and 800x1066, the tiled K2
+    regime of the TPU kernel), the matcher at B=19 pairs of the engine's
+    keypoint capacity; each timed as the kernel phase times it. Also the
+    card's peak memory of the pyramid, the SIFT descriptors of one level and
+    the matcher's plain version at those shapes."""
+    import torch
+
+    from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
+    from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+    from sfmfromscratch_tpu_torch.ops.image import build_pyramid, pyramid_shapes
+    from sfmfromscratch_tpu_torch.ops.sift import sift_descriptors
+
+    _, n, kp, _, _, scene = LADDER_RUNGS["L3h"]
+    ex = ladder_config(port_ladder_api(dev), kp).extractor
+    levels = pyramid_shapes(scene["img_hw"], ex.pyramid_level, ex.pyramid_scale_factor)
+    per_level = kp // ex.pyramid_level
+    cap = per_level * ex.pyramid_level
+    gen = torch.Generator(device=dev).manual_seed(13)
+    harris = [_harris_case(HK, gen, dev, n, H, W, ex.gaussian_size, ex.sigma, ex.alpha, peaks)
+              for H, W in levels]
+    d1 = _descriptors(gen, dev, n - 1, cap)
+    d2 = _descriptors(gen, dev, n - 1, cap)
+    mask2 = torch.rand((n - 1, cap), generator=gen, device=dev) > 0.05
+    match = _match_row(f"match f32 ladder {n - 1}x{cap}x{cap}", MK, d1, d2, mask2, False, peaks)
+    img = torch.rand((n, *levels[0]), generator=gen, device=dev)
+    xs = torch.randint(16, levels[0][1] - 16, (n, per_level), generator=gen, device=dev,
+                       dtype=torch.int32)
+    ys = torch.randint(16, levels[0][0] - 16, (n, per_level), generator=gen, device=dev,
+                       dtype=torch.int32)
+    kmask = torch.ones((n, per_level), dtype=torch.bool, device=dev)
+    _, n2sq = MK._norms(d1, d2, mask2)
+    memory = dict(
+        pyramid=_peak_mib(lambda: build_pyramid(img, ex.pyramid_level, ex.pyramid_scale_factor)),
+        sift_level0=_peak_mib(lambda: sift_descriptors(img, xs, ys, kmask, ex.feature_width)),
+        match_plain=_peak_mib(lambda: MK.match_top2_plain(d1, d2, n2sq)))
+    shapes = {("harris", (n, H, W), ex.gaussian_size, float(ex.sigma), float(ex.alpha))
+              for H, W in levels} | {("match", (n - 1, cap, cap, 128), True, False)}
+    return dict(harris=harris, match=match, capacity=cap, levels=levels, peak_mib=memory,
+                shapes=shapes)
+
+
+def ladder_phase(dev, timed_shapes, rungs=LADDER_DEFAULT):
+    """Every scene of ``rungs`` rendered at once (``ladder_scenes``), then
+    each rung once through the port on the card, its launch counts zeroed
+    just before the run and read just after, and the shapes it launched
+    recorded (``ladder_launch_shapes``); each row held to its pins, its
+    launches and every camera; after each rung both kernels held against
+    their plain versions at every shape it launched that no earlier rung
+    did (``ladder_shape_checks``), and ``L3h``'s shapes held to
+    ``timed_shapes`` (those that ``ladder_kernels`` timed); ``L4``'s final
+    BA solved again (``ladder_ba_again``); the default rungs' engine walls
+    held to ``LADDER_BUDGET_S``. Returns the launches per rung."""
+    import tempfile
+
+    import torch
+
+    t_phase = time.perf_counter()
+    api = port_ladder_api(dev)
+    launches, failed, walls, held = {}, [], {}, set()
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ladder_") as work:
+        scenes, render_s = ladder_scenes(rungs, work)
+        _print({"phase": "ladder", "render_wall_s": render_s})
+        for name in rungs:
+            _zero_launch_counts()
+            keep = {}
+            with ladder_launch_shapes() as shapes:
+                row = ladder_run(name, api, scenes[name], keep=keep)
+                torch.cuda.synchronize()
+            launches[name] = _launch_counts()
+            walls[name] = row["wall_s"]
+            row["kernel_shapes"] = sorted(shapes)
+            row["kernel_checks"] = ladder_shape_checks(dev, shapes - held)
+            held |= shapes
+            if name in LADDER_BA_AGAIN:
+                row["ba_again"] = ladder_ba_again(keep.pop("engine"))
+            keep.clear()
+            want = dict(LADDER_LAUNCHES[name], **{"match_top2_fused(bf16=True)": 0})
+            fails = ladder_failures(name, row)
+            if launches[name] != want:
+                fails.append(f"{name}: launches {launches[name]} != {want}")
+            again = row.get("ba_again")
+            if again and again["card_again_px"] != again["run_px"]:
+                fails.append(f"{name}: the final BA solved again on the card ends at "
+                             f"{again['card_again_px']} px, the run at {again['run_px']}")
+            if name == "L3h" and shapes != timed_shapes:
+                fails.append(f"{name}: launched {sorted(shapes)}, the kernel phase timed "
+                             f"{sorted(timed_shapes)}")
+            _print({"phase": "ladder", **row, "launches": launches[name],
+                    "pins": PIN_LADDER[name], "want_launches": want, "failed": fails})
+            failed += fails
+    default_s = sum(walls[n] for n in LADDER_DEFAULT if n in walls)
+    _print({"phase": "ladder", "rungs": list(rungs), "wall_s": time.perf_counter() - t_phase,
+            "default_rungs_wall_s": default_s, "budget_s": LADDER_BUDGET_S, "failed": failed})
+    _check(not failed, "; ".join(failed))
+    if set(LADDER_DEFAULT) <= set(walls):
+        _check(default_s <= LADDER_BUDGET_S,
+               f"ladder: the default rungs took {default_s} s > {LADDER_BUDGET_S} s")
+    return launches
+
+
 def _run_rank_groups(groups, work, device, limit_s):
     """Start every group of ranks at once, each ``(target, world, args)``
     running ``target(rank, device, *args)`` in ``world`` spawned processes
@@ -3608,6 +4061,7 @@ def mesh_phase(dev, engine_ba):
 
 def main(argv) -> int:
     only_kernels = "--only-kernels" in argv
+    ladder_global = "--ladder-global" in argv
     try:
         import torch
     except ImportError:
@@ -3638,6 +4092,20 @@ def main(argv) -> int:
                 "ptxas": {n: build_log(n) for n in SOURCES}})
 
         kernels = [harris_phase(dev, peaks), *match_phase(dev, peaks)]
+        # The ladder's kernel shapes here, with the other kernel cases: late
+        # in a long process torch.profiler has dropped kernel activities.
+        ladder_k = ladder_kernels(dev, peaks)
+        ladder_shapes = ladder_k.pop("shapes")
+        _print({"phase": "ladder_kernels", **ladder_k, "shapes": sorted(ladder_shapes)})
+        kernels[0]["ladder_path"] = dict(
+            per=f"L3h run: 2 launches, B=20 at {ladder_k['levels'][0]} and {ladder_k['levels'][1]}",
+            cases=ladder_k["harris"], **{k: _sum(ladder_k["harris"], k) for k in
+                                         ("device_ms", "call_ms", "bound_ms", "plain_ms")})
+        kernels[1]["ladder_path"] = dict(
+            per=f"L3h run: one launch, B=19 pairs, {ladder_k['capacity']} x "
+                f"{ladder_k['capacity']} x 128 (the engine's keypoint capacity)",
+            **{k: ladder_k["match"][k] for k in ("device_ms", "call_ms", "bound_ms", "plain_ms",
+                                                 "library_ms", "max_abs_err")})
         if only_kernels:
             _print({"kernels": kernels})
             print("chip_smoke: --only-kernels given: slice and engine phases skipped, "
@@ -3654,6 +4122,8 @@ def main(argv) -> int:
         compat_runs = compat_phase(dev, engine_ba)
         train = train_phase(dev, peaks)
         scenarios = scenarios_phase(dev)
+        ladder = ladder_phase(dev, ladder_shapes,
+                              LADDER_DEFAULT + (LADDER_GLOBAL if ladder_global else ()))
         kernels[1]["superpoint_d256"] = d256
         for k in kernels:
             k["launches"] = launches.get(k["name"], 0)
@@ -3667,6 +4137,7 @@ def main(argv) -> int:
             k["launches_compat"] = {run: n.get(k["name"], 0) for run, n in compat_runs.items()}
             k["launches_train"] = {run: n.get(k["name"], 0) for run, n in train.items()}
             k["launches_scenarios"] = {run: n.get(k["name"], 0) for run, n in scenarios.items()}
+            k["launches_ladder"] = {run: n.get(k["name"], 0) for run, n in ladder.items()}
         print(smi, flush=True)
         _print({"kernels": kernels})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,

@@ -259,7 +259,10 @@ def averaging_refresh(eng, max_span: int = 6, cap: int = 192, min_corr: int = 24
     """Refresh ``eng``'s chain poses by motion averaging over the map's own
     track correspondences, then re-triangulate (chain_refresh.py:356-467).
     Mutates ``eng.global_poses`` and the map's points on ``eng.device``; the
-    caller runs the final global BA afterwards."""
+    caller runs the final global BA afterwards. Its time goes to
+    ``eng.stage_times["chain_refresh"]``, the edge-scale solve's (host
+    bookkeeping and the CG with its host reads) also to
+    ``["chain_refresh.scales"]``."""
     t0 = time.perf_counter()
     dev = eng.device
     frames, tracks, xy = eng.map.observations()
@@ -312,8 +315,10 @@ def averaging_refresh(eng, max_span: int = 6, cap: int = 192, min_corr: int = 24
     R_chain = so3_exp(rv)
     c_chain = -np.einsum("cij,ci->cj", R_chain.cpu().numpy().astype(np.float64), tv)
     lam_chain = np.maximum(np.linalg.norm(c_chain[edge_i] - c_chain[edge_j], axis=1), 1e-6)
-    lam = solve_edge_scales(edge_i, edge_j, tid, mask, z1.cpu().numpy(), z2.cpu().numpy(),
-                            lam_chain, device=dev)
+    z1_np, z2_np = z1.cpu().numpy(), z2.cpu().numpy()
+    t_scales = time.perf_counter()   # the fetches above end the device's queue
+    lam = solve_edge_scales(edge_i, edge_j, tid, mask, z1_np, z2_np, lam_chain, device=dev)
+    eng.stage_times["chain_refresh.scales"] = time.perf_counter() - t_scales
 
     rvecs, ts, R, _c = _average_poses(
         R_rel, dt(edge_i, torch.int64), dt(edge_j, torch.int64), dt(w), R_chain, dt(lam),

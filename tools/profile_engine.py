@@ -18,10 +18,13 @@ place of the scan chain; with ``--engine global`` ``GlobalSfmEngine`` on the
 20-view 4 deg/view orbit of ``chip_smoke.py``'s global phase; with
 ``--engine scale`` the scale phase's keyframes run (the 47-view 1.5 deg/view
 orbit, auto keyframes at ``chip_smoke.SCALE_FLOW_PX``, window 2, the CLI's
-default BA) with no pair cache. Prints one JSON line per part as it is
+default BA) with no pair cache; with ``--engine ladder --rung L4`` a rung of
+``chip_smoke.py``'s ladder phase (``chip_smoke.LADDER_RUNGS``) at the
+ladder's configuration and scene. Prints one JSON line per part as it is
 measured and, with ``--out``, appends it to that file (JSON lines).
 
-    python3 tools/profile_engine.py [--engine host|global|scale] [--runs 3] [--out profile_engine.json]
+    python3 tools/profile_engine.py [--engine host|global|scale|ladder] [--rung L4] [--runs 3]
+        [--out profile_engine.json]
 """
 
 from __future__ import annotations
@@ -43,8 +46,10 @@ from tools.profile_two_view import _busy_us  # noqa: E402
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("--engine", choices=("incremental", "host", "global", "scale"),
+    ap.add_argument("--engine", choices=("incremental", "host", "global", "scale", "ladder"),
                     default="incremental")
+    ap.add_argument("--rung", choices=tuple(chip_smoke.LADDER_RUNGS), default="L4",
+                    help="the ladder rung of --engine ladder")
     ap.add_argument("--runs", type=int, default=3)
     ap.add_argument("--out", default=None, help="also write the parts to this JSON file")
     args = ap.parse_args()
@@ -82,6 +87,11 @@ def main() -> int:
             cfg = dataclasses.replace(cfg, ba=BundleAdjustConfig())   # the CLI's BA
             kw = dict(pair_window=2, keyframe_step="auto",
                       keyframe_flow_px=chip_smoke.SCALE_FLOW_PX)
+        elif args.engine == "ladder":
+            name, n, kp, kw = chip_smoke.LADDER_RUNGS[args.rung][:4]
+            K = chip_smoke.ladder_scene(args.rung, seq)["K"]
+            engine = {"SfmEngine": SfmEngine, "GlobalSfmEngine": GlobalSfmEngine}[name]
+            cfg = chip_smoke.ladder_config(chip_smoke.port_ladder_api(dev), kp)
         else:
             n = 10
             K, _ = chip_smoke.bench_sequence(seq)
@@ -101,7 +111,8 @@ def main() -> int:
         if args.out:
             os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
             open(args.out, "w").close()
-        emit({"card": smi, "torch": torch.__version__, "engine": args.engine})
+        emit({"card": smi, "torch": torch.__version__, "engine": args.engine,
+              "rung": args.rung if args.engine == "ladder" else None})
         run()
         # nvidia-smi's utilization sampler (share of each 100 ms sample in
         # which a kernel ran) over the timed runs: a second, coarse reading of
