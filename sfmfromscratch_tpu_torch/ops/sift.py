@@ -18,7 +18,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from sfmfromscratch_tpu_torch.ops.image import sobel_gradients
+from sfmfromscratch_tpu_torch.ops.image import SOBEL_X, SOBEL_Y, sobel_gradients
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
 
 _GRID = 4           # 4x4 spatial cells
@@ -28,28 +28,49 @@ _DOM_BINS = 36      # dominant-orientation histogram bins
 _DESC_REGION = _GRID * _CELL  # 16
 
 
-def sobel_exact_zeros(image: torch.Tensor):
-    """(Ix, Iy) of ``ops/image.py::sobel_gradients``, set to exactly +0
-    where the image is constant along the derivative's axis (each of the
-    three pixel pairs that the Sobel differences is equal), and unchanged
-    elsewhere. A convolution leaves rounding residues of either sign there
-    (+-3e-8 seen), whose pattern is its summation order's: torch's CPU
-    convolution adds the taps row by row, XLA's in another order. On an
-    edge along that axis the residue's sign sends ``atan2`` to +pi or to
-    -pi, the last or the first orientation bin. On
-    ``tests/render.py::render_planes`` scenes 12% of the pixels are such,
-    and which pairs of views pass the epipolar gate of
-    ``tests/test_wide_baseline.py`` is then a draw of the residues, in both
-    packages (``tools/sobel_residue_pairs.py``). This is a departure from
-    the JAX package, whose gradients keep the residues: the port's
-    descriptors equal JAX's computed from exact-zero gradients."""
+def _sobel_xla_order(image: torch.Tensor):
+    """(Ix, Iy) of ``sobel_gradients`` summed as XLA's CPU convolution sums
+    them (jax 0.9.0), which gives the JAX package's bits: each 3x3 tap's
+    product (exact: the weights are 0, +-1 and +-2), taps numbered row by
+    row, in (((t0 + t1) + (t4 + t5)) + ((t2 + t3) + (t6 + t7))) + t8. Float32
+    sums in a fixed order round the same way on the CPU and the card. Each
+    product is made as the sum reaches it, so at most five full-size
+    temporaries are alive at once."""
+    H, W = image.shape[-2:]
+    x = F.pad(image, (1, 1, 1, 1))
+    taps = [x[..., i:i + H, j:j + W] for i in range(3) for j in range(3)]
+
+    def conv(kernel):
+        w = kernel.reshape(-1).tolist()
+        t = lambda i: w[i] * taps[i]
+        return (((t(0) + t(1)) + (t(4) + t(5))) + ((t(2) + t(3)) + (t(6) + t(7)))) + t(8)
+
+    return conv(SOBEL_X), conv(SOBEL_Y)
+
+
+def sobel_jax_residues(image: torch.Tensor):
+    """(Ix, Iy) of ``ops/image.py::sobel_gradients``, with the JAX package's
+    bits where the image is constant along the derivative's axis (each of
+    the three pixel pairs that the Sobel differences is equal) and the
+    convolution's elsewhere. There the exact gradient is 0 and the sum's
+    rounding residue (+-3e-8 seen), whose sign is its summation order's,
+    sends an edge along that axis to ``atan2``'s +pi or -pi: after the
+    dominant orientation is subtracted, one keeps the pixel in the histogram
+    and the other drops it (angles outside [-pi, pi] are dropped). On
+    ``tests/render.py::render_planes`` scenes 12% of the pixels are such.
+    The port takes JAX's residue there (``_sobel_xla_order``): exact zeros
+    there kept every such pixel on one side and moved the TinyPoint
+    hybrid's wide-baseline inlier shares by up to 4 points and its match
+    counts by up to 21% from JAX's (``tools/eval_superpoint_torch.py``);
+    with JAX's residues they are JAX's."""
     Ix, Iy = sobel_gradients(image)
+    jx, jy = _sobel_xla_order(image)
     x = F.pad(image, (1, 1, 1, 1))
     eq_x = x[..., :, 2:] == x[..., :, :-2]          # I(r, c+1) == I(r, c-1), rows padded
     eq_y = x[..., 2:, :] == x[..., :-2, :]          # I(r+1, c) == I(r-1, c), columns padded
     flat_x = eq_x[..., :-2, :] & eq_x[..., 1:-1, :] & eq_x[..., 2:, :]
     flat_y = eq_y[..., :, :-2] & eq_y[..., :, 1:-1] & eq_y[..., :, 2:]
-    return torch.where(flat_x, 0.0, Ix), torch.where(flat_y, 0.0, Iy)
+    return torch.where(flat_x, jx, Ix), torch.where(flat_y, jy, Iy)
 
 
 def _extract_patches(field: torch.Tensor, x: torch.Tensor, y: torch.Tensor, fw: int) -> torch.Tensor:
@@ -135,7 +156,7 @@ def sift_descriptors(
     ``rotation_invariant=False`` reproduces NaiveSIFT, ``True``
     ScaleRotInvSIFT. Invalid keypoints yield zero rows.
     """
-    Ix, Iy = sobel_exact_zeros(image)
+    Ix, Iy = sobel_jax_residues(image)
     mag = torch.sqrt(Ix * Ix + Iy * Iy)
     ori = torch.atan2(Iy, Ix)
 

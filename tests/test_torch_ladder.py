@@ -363,3 +363,70 @@ def test_final_ba_on_pcg_matches_jax(freeze_before, orbit6, monkeypatch):
     aligned = chip_smoke._similarity_align(teng.map.points()[multi], want)
     radius = np.linalg.norm(want - want.mean(0), axis=1).max()
     assert np.abs(aligned - want).max() <= 0.02 * radius, np.abs(aligned - want).max() / radius
+
+
+def _behind(problem, cam_params, points):
+    """How many real observations (weight > 0) of ``problem`` lie behind
+    their camera (depth <= 1e-6, ``_regate_observations``' test) under
+    ``cam_params`` and ``points``."""
+    from scipy.spatial.transform import Rotation
+
+    w = np.asarray(problem.obs_w) > 0
+    cam, pt = np.asarray(problem.obs_cam)[w], np.asarray(problem.obs_pt)[w]
+    cp, X = np.asarray(cam_params, np.float64), np.asarray(points, np.float64)
+    R = Rotation.from_rotvec(cp[cam, :3]).as_matrix()
+    return int((np.einsum("oj,oj->o", R[:, 2], X[pt]) + cp[cam, 5] <= 1e-6).sum())
+
+
+def test_global_first_ba_round_on_pcg_from_jax_state(scene3, monkeypatch, record_property):
+    """JAX's global engine on PCG (``SFM_NO_DENSE_SCHUR=1``) on the 3-view
+    scene at ``config.seed`` 0 (``ENGINES["global"]``), stage by stage to its
+    map; its first BA round's problem (``_global_ba(freeze_before=1)``:
+    camera 0 frozen, the scale free) solved by both packages' PCG LM. The
+    cost after each of the first 5 iterations agrees to 1e-3 relative (the
+    rule of ``test_final_ba_on_pcg_matches_jax``). How many of the 98
+    observations each package's full solve leaves behind the cameras is
+    recorded (``behind_jax``, ``behind_port``), not held, because JAX's
+    state moves with the process: in a process that imports only JAX its
+    first costs differ by 2.5e-3 from this test's, and from there JAX's LM
+    crosses to the negative scale at iteration 22 (96 behind, 0.154 px)
+    where the port's, on the same problem with costs within 1e-4 up to
+    then, rejects the step and stops at iteration 35 with none behind
+    (0.162 px); in this test's process JAX leaves 1 behind (0.1616 px) and
+    the port none (0.1617 px)."""
+    monkeypatch.setenv("SFM_NO_DENSE_SCHUR", "1")
+    cfg = engine_jax_config(seed=0)
+    jeng = jglobal.GlobalSfmEngine(scene3["dir"], scene3["n"], config=cfg, single_K=scene3["K"],
+                                   auto_run=False, **ENGINES["global"][1])
+    feats = jeng._extract_all_features()   # JGlobal.run() up to its BA rounds
+    jeng._prepare_pair_selection(feats)
+    jeng._match_pairs(feats)
+    jeng._relative_poses()
+    jeng._motion_averaging()
+    jeng._build_tracks(feats)
+    jeng._triangulate()
+    jeng._populate_map()
+    frames, tracks, xy = jeng.map.observations()
+    cams = np.array([np.hstack([rv, t]) for rv, t in jeng.global_poses])
+    jp = jprob.pad_problem(jprob.make_problem(cams, jeng.map.points(), frames, tracks, xy,
+                                              np.stack(jeng.global_K),
+                                              cam_fixed=np.arange(len(cams)) < 1))
+    tp = interop.ba_problem_from_numpy(jp)
+    assert len(cams) == 3 and len(frames) == int((np.asarray(jp.obs_w) > 0).sum()) > 50
+    assert not tlm.resolve_dense(None, jp.num_cameras, jp.num_points)
+    b = cfg.ba
+    kw = dict(cg_iters=60, init_damping=b.init_damping, damping_up=b.damping_up,
+              damping_down=b.damping_down, ftol=b.ftol, huber_delta=b.huber_delta)
+    for k in range(1, 6):
+        a = jlm.bundle_adjust(jp, max_iters=k, **kw)
+        t = tlm.bundle_adjust(tp, max_iters=k, **kw)
+        assert float(t.final_cost) == pytest.approx(float(a.final_cost), rel=1e-3), k
+    a = jlm.bundle_adjust(jp, max_iters=b.max_lm_iters, **kw)
+    t = tlm.bundle_adjust(tp, max_iters=b.max_lm_iters, **kw)
+    behind = dict(jax=_behind(jp, a.cam_params, a.points), port=_behind(jp, t.cam_params, t.points))
+    for pkg, res in (("jax", a), ("port", t)):
+        record_property(f"behind_{pkg}", behind[pkg])
+        record_property(f"final_px_{pkg}", float(res.final_mean_error))
+    assert _behind(jp, jp.cam_params, jp.points) == 0
+    assert all(0 <= n <= len(frames) for n in behind.values())
+    assert np.isfinite(float(a.final_cost)) and np.isfinite(float(t.final_cost))

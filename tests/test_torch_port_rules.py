@@ -372,9 +372,12 @@ def test_fetch_matches_jax():
 
 
 def test_port_sources_name_no_jax():
-    """No import statement of the port or of ``chip_smoke.py`` names ``jax``
-    or the JAX package, not even inside a function."""
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    """No import statement of the port, of ``chip_smoke.py`` or of the
+    port's tools (``tools/*_torch.py``) names ``jax`` or the JAX package,
+    not even inside a function."""
+    tools = sorted((ROOT / "tools").glob("*_torch.py"))
+    assert ROOT / "tools" / "eval_superpoint_torch.py" in tools
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + tools
     assert len(files) >= 20
     assert {PORT / "parallel" / f for f in ("mesh.py", "sharded_ba.py", "sharded_match.py")} \
         <= set(files)

@@ -98,28 +98,39 @@ def test_two_view_twenty_degrees_matches_jax(api, tmp_path):
 
 
 def test_sift_gradients_are_exact_where_the_image_is_flat(monkeypatch):
-    """``sobel_exact_zeros`` on the 20-degree pair's first view: exactly +0
-    where the three pixel pairs that the Sobel differences are equal (on
-    this scene more than 5% of the pixels for each axis), the convolution's
-    bits everywhere else; ``sift_descriptors`` reads it."""
+    """``sobel_jax_residues`` on the 20-degree pair's first view, alone and
+    in a batch with the second: where the three pixel pairs that the Sobel
+    differences are equal (on this scene more than 5% of the pixels for each
+    axis) JAX's bits, signed zeros included: the exact gradient there is 0
+    and JAX's bits hold rounding residues, which torch's convolution puts
+    elsewhere; everywhere else the convolution's bits
+    (``sobel_gradients``). ``sift_descriptors`` reads it."""
+    import jax.numpy as jnp
     import torch.nn.functional as F
 
+    from sfmfromscratch_tpu.ops.image import sobel_gradients as jax_sobel
     from sfmfromscratch_tpu_torch.ops import sift
     from sfmfromscratch_tpu_torch.ops.image import sobel_gradients
 
     images, _, _, _ = chip_smoke._render_module().render_planes(
-        np.random.default_rng(0), num_views=1, orbit_step_deg=10.0)
+        np.random.default_rng(0), num_views=2, orbit_step_deg=10.0)
+    bits = lambda a: np.asarray(a).view(np.int32)
+    for ims in (images[0], np.stack(images[:2])):
+        img = torch.as_tensor(ims)
+        x = F.pad(img, (1, 1, 1, 1)).numpy()
+        eq_x, eq_y = x[..., :, 2:] == x[..., :, :-2], x[..., 2:, :] == x[..., :-2, :]
+        flats = (eq_x[..., :-2, :] & eq_x[..., 1:-1, :] & eq_x[..., 2:, :],
+                 eq_y[..., :, :-2] & eq_y[..., :, 1:-1] & eq_y[..., :, 2:])
+        for g, ref, conv, flat in zip(sift.sobel_jax_residues(img), jax_sobel(jnp.asarray(ims)),
+                                      sobel_gradients(img), flats):
+            g, ref, conv = bits(g.numpy()), bits(ref), bits(conv.numpy())
+            assert flat.mean() > 0.05
+            np.testing.assert_array_equal(g[flat], ref[flat])
+            np.testing.assert_array_equal(g[~flat], conv[~flat])
+            assert np.any(g[flat] != 0) and np.any(conv[flat] != g[flat])
     img = torch.as_tensor(images[0])
-    x = F.pad(img, (1, 1, 1, 1)).numpy()
-    eq_x, eq_y = x[:, 2:] == x[:, :-2], x[2:, :] == x[:-2, :]
-    flats = (eq_x[:-2] & eq_x[1:-1] & eq_x[2:], eq_y[:, :-2] & eq_y[:, 1:-1] & eq_y[:, 2:])
-    for g, conv, flat in zip(sift.sobel_exact_zeros(img), sobel_gradients(img), flats):
-        g, conv = g.numpy(), conv.numpy()
-        assert flat.mean() > 0.05
-        assert np.all(g[flat] == 0) and not np.signbit(g[flat]).any()
-        np.testing.assert_array_equal(g[~flat], conv[~flat])
-    calls, real = [], sift.sobel_exact_zeros
-    monkeypatch.setattr(sift, "sobel_exact_zeros", lambda im: calls.append(im.shape) or real(im))
+    calls, real = [], sift.sobel_jax_residues
+    monkeypatch.setattr(sift, "sobel_jax_residues", lambda im: calls.append(im.shape) or real(im))
     xy = torch.tensor([100, 120], dtype=torch.int32)
     sift.sift_descriptors(img, xy, xy, torch.ones(2, dtype=torch.bool), feature_width=16)
     assert calls == [img.shape]
@@ -131,21 +142,23 @@ def test_sift_descriptors_match_jax_on_planes(monkeypatch, rotation_invariant):
     view, 12% of whose pixels are flat along an axis, at 300 keypoints
     (rows agree when every entry is within 1e-4):
 
-    * the port equals JAX with the port's exact-zeros rule applied to JAX's
-      Sobel gradients, at every keypoint (9e-7 seen): the rule is the only
-      difference between the two;
-    * the port fed JAX's own Sobel bits equals JAX at every keypoint with
-      the dominant orientation, and at 80% (0.801 seen) without it, where
-      XLA's and torch's ``atan2`` part by one ulp at -pi/2 on a residue
-      beside a vertical edge, on a bin edge;
-    * against plain JAX the port agrees at 12.5% (without) and 13.6% (with
-      the dominant orientation) of the keypoints, and it disagrees exactly
-      where JAX's own rows move when its residues are set to zero."""
+    * the port (JAX's residues where the image is flat along an axis,
+      ``sobel_jax_residues``) equals JAX at every keypoint with the dominant
+      orientation, and at 80% (0.801 seen) without it, where XLA's and
+      torch's ``atan2`` part by one ulp at -pi/2 on a residue beside a
+      vertical edge, on a bin edge;
+    * with the gradients set to exactly +0 where the image is flat along
+      the derivative's axis, in both packages, the two agree at every
+      keypoint (9e-7 seen);
+    * that rule moves most rows: JAX with it agrees with plain JAX at 12.5%
+      (without) and 13.6% (with the dominant orientation) of the keypoints,
+      which is why the port keeps JAX's residues there."""
     import jax
     import jax.numpy as jnp
 
     from sfmfromscratch_tpu.ops import sift as jsift
     from sfmfromscratch_tpu_torch.ops import sift
+    from tools.sobel_residue_pairs import jax_exact_zeros, port_exact_zeros
 
     images, _, _, _ = chip_smoke._render_module().render_planes(
         np.random.default_rng(0), num_views=1, orbit_step_deg=10.0)
@@ -154,13 +167,6 @@ def test_sift_descriptors_match_jax_on_planes(monkeypatch, rotation_invariant):
     x, y = r.integers(0, 320, 300).astype(np.int32), r.integers(0, 240, 300).astype(np.int32)
     mask = r.uniform(size=300) > 0.1
     jax_sobel = jsift.sobel_gradients
-
-    def jax_sobel_exact_zeros(image):
-        Ix, Iy = jax_sobel(image)
-        p = jnp.pad(image, 1)
-        eq_x, eq_y = p[:, 2:] == p[:, :-2], p[2:, :] == p[:-2, :]
-        return (jnp.where(eq_x[:-2] & eq_x[1:-1] & eq_x[2:], 0.0, Ix),
-                jnp.where(eq_y[:, :-2] & eq_y[:, 1:-1] & eq_y[:, 2:], 0.0, Iy))
 
     def jax_rows(sobel):
         monkeypatch.setattr(jsift, "sobel_gradients", sobel)
@@ -181,14 +187,11 @@ def test_sift_descriptors_match_jax_on_planes(monkeypatch, rotation_invariant):
     def close(a, b):
         return np.all(np.abs(a - b) <= 1e-4, axis=1)[mask]
 
-    ref, ref_zeros, got = jax_rows(jax_sobel), jax_rows(jax_sobel_exact_zeros), port_rows()
-    assert close(got, ref_zeros).all()
-    monkeypatch.setattr(sift, "sobel_exact_zeros", lambda im: tuple(
-        torch.as_tensor(np.array(g)) for g in jax_sobel(jnp.asarray(im.numpy()))))
-    assert close(port_rows(), ref).mean() >= (1.0 if rotation_invariant else 0.8)
-    agree = close(got, ref)
-    assert 0.1 <= agree.mean() <= 0.2, agree.mean()
-    np.testing.assert_array_equal(agree, close(ref_zeros, ref))
+    ref, ref_zeros, got = jax_rows(jax_sobel), jax_rows(jax_exact_zeros(jax_sobel)), port_rows()
+    assert close(got, ref).mean() >= (1.0 if rotation_invariant else 0.8)
+    monkeypatch.setattr(sift, "sobel_jax_residues", port_exact_zeros(sift.sobel_jax_residues))
+    assert close(port_rows(), ref_zeros).all()
+    assert 0.1 <= close(ref_zeros, ref).mean() <= 0.2, close(ref_zeros, ref).mean()
 
 
 def test_global_reconstruction_ten_degree_steps(api, tmp_path):

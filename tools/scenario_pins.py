@@ -43,17 +43,31 @@ def jax_scenario_api():
 
     from sfmfromscratch_tpu import config
     from sfmfromscratch_tpu.geometry.camera import SensorType, intrinsics_from_exif
-    from sfmfromscratch_tpu.geometry.epipolar import eight_point_fundamental, epipolar_distances
+    from sfmfromscratch_tpu.geometry.epipolar import (
+        eight_point_fundamental,
+        epipolar_distances,
+        symmetric_epipolar_distances,
+    )
+    from sfmfromscratch_tpu.geometry.ransac import ransac_fundamental
     from sfmfromscratch_tpu.pipeline.frontend import FeatureRunner, matches_to_coords
     from sfmfromscratch_tpu.pipeline.global_sfm import GlobalSfmEngine
     from sfmfromscratch_tpu.pipeline.incremental import SfmEngine
 
+    def asarray(a):
+        return jnp.asarray(np.asarray(a, np.float32))
+
+    def ransac_f(seed, p1, p2, **kw):
+        res = ransac_fundamental(jax.random.key(seed), asarray(p1), asarray(p2), **kw)
+        return res.F, res.inliers
+
     return types.SimpleNamespace(
         config=config, SensorType=SensorType, intrinsics_from_exif=intrinsics_from_exif,
-        SfmEngine=SfmEngine, GlobalSfmEngine=GlobalSfmEngine, feature_runner=FeatureRunner.run,
+        SfmEngine=SfmEngine, GlobalSfmEngine=GlobalSfmEngine,
+        global_engine_class=GlobalSfmEngine, feature_runner=FeatureRunner.run,
         matches_to_coords=matches_to_coords, eight_point_fundamental=eight_point_fundamental,
         epipolar_distances=epipolar_distances,
-        asarray=lambda a: jnp.asarray(np.asarray(a, np.float32)), host=np.asarray)
+        symmetric_epipolar_distances=symmetric_epipolar_distances, ransac_fundamental=ransac_f,
+        asarray=asarray, host=np.asarray)
 
 
 def main():

@@ -9,11 +9,13 @@ first pair). The Sobel gradients that SIFT reads are, by ``--variant``:
 
 * ``jax``: the JAX package as it is (XLA's convolution);
 * ``jax_zeros``: the JAX package with its gradients set to +0 where the
-  image is flat along the derivative's axis (the port's rule,
-  ``sfmfromscratch_tpu_torch/ops/sift.py::sobel_exact_zeros``);
-* ``port``: the port as it is (that rule);
+  image is flat along the derivative's axis;
+* ``port``: the port as it is (JAX's residues where the image is flat
+  along the derivative's axis, torch's convolution elsewhere:
+  ``sfmfromscratch_tpu_torch/ops/sift.py::sobel_jax_residues``);
 * ``port_conv``: the port with torch's convolution alone;
-* ``port_jax_bits``: the port fed the JAX package's gradient bits.
+* ``port_zeros``: the port with its gradients set to +0 where the image is
+  flat along the derivative's axis.
 
 Each variant is one process on the CPU, about 2 min:
 
@@ -33,10 +35,13 @@ import numpy as np  # noqa: E402
 
 import chip_smoke  # noqa: E402  (the scene and the scenario calls)
 
-VARIANTS = ("jax", "jax_zeros", "port", "port_conv", "port_jax_bits")
+VARIANTS = ("jax", "jax_zeros", "port", "port_conv", "port_zeros")
 
 
-def _jax_exact_zeros(sobel):
+def jax_exact_zeros(sobel):
+    """The JAX package's ``sobel`` with its gradients set to +0 where the
+    image (H, W or a stack) is flat along the derivative's axis: each of the
+    three pixel pairs that the Sobel differences is equal."""
     import jax.numpy as jnp
 
     def exact_zeros(image):
@@ -50,6 +55,20 @@ def _jax_exact_zeros(sobel):
     return exact_zeros
 
 
+def port_exact_zeros(sobel):
+    """``jax_exact_zeros`` for the port's ``sobel`` (torch tensors)."""
+    import torch
+
+    def exact_zeros(image):
+        Ix, Iy = sobel(image)
+        p = torch.nn.functional.pad(image, (1, 1, 1, 1))
+        eq_x, eq_y = p[..., :, 2:] == p[..., :, :-2], p[..., 2:, :] == p[..., :-2, :]
+        return (torch.where(eq_x[..., :-2, :] & eq_x[..., 1:-1, :] & eq_x[..., 2:, :], 0.0, Ix),
+                torch.where(eq_y[..., :, :-2] & eq_y[..., :, 1:-1] & eq_y[..., :, 2:], 0.0, Iy))
+
+    return exact_zeros
+
+
 def variant_api(variant):
     """The scenario API of ``variant``'s package with its Sobel swapped in."""
     if variant.startswith("jax"):
@@ -59,7 +78,7 @@ def variant_api(variant):
         if variant == "jax_zeros":
             from sfmfromscratch_tpu.ops import sift as jsift
 
-            jsift.sobel_gradients = _jax_exact_zeros(jsift.sobel_gradients)
+            jsift.sobel_gradients = jax_exact_zeros(jsift.sobel_gradients)
         return api
     import torch
 
@@ -67,17 +86,9 @@ def variant_api(variant):
     from sfmfromscratch_tpu_torch.ops.image import sobel_gradients
 
     if variant == "port_conv":
-        sift.sobel_exact_zeros = sobel_gradients
-    elif variant == "port_jax_bits":
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-        import jax.numpy as jnp
-
-        from sfmfromscratch_tpu.ops.image import sobel_gradients as jax_sobel
-
-        sift.sobel_exact_zeros = lambda im: tuple(
-            torch.as_tensor(np.array(g)) for g in jax_sobel(jnp.asarray(im.numpy())))
+        sift.sobel_jax_residues = sobel_gradients
+    elif variant == "port_zeros":
+        sift.sobel_jax_residues = port_exact_zeros(sift.sobel_jax_residues)
     return chip_smoke.port_scenario_api(torch.device("cpu"))
 
 
