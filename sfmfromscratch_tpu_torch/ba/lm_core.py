@@ -37,6 +37,7 @@ from sfmfromscratch_tpu_torch.ba.schur import (
     solve_schur,
     solve_schur_dense,
 )
+from sfmfromscratch_tpu_torch.utils import profiling
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
 
 __all__ = ["LMRunOut", "lm_run", "robust_cost", "huber_weights", "scale_focal"]
@@ -160,7 +161,8 @@ def lm_run(
     ``max_iters``; with ``selfcal`` the shared focal scale moves too,
     clipped to [0.5, 2]. ``base``'s observation arrays may be a shard of
     the problem's, with ``reduce_fn`` summing over the shards; cameras,
-    points and K are whole on every shard."""
+    points and K are whole on every shard. Each iteration adds 1 to the
+    counter ``lm_iters`` of the innermost open span (``profiling.count``)."""
     if selfcal and use_dense:
         raise ValueError("the bordered selfcal solve has no dense path")
     red = reduce_fn or (lambda x: x)
@@ -191,6 +193,7 @@ def lm_run(
     eta = scalar(0.15 if forcing else 0.0)
     it = 0
     while it < max_iters and not bool(done):
+        profiling.count("lm_iters")
         eta_used = eta
         p_s = scaled(s)
         Jc, Jp, r = jacobian_blocks(p_s, cam, pts)

@@ -17,8 +17,6 @@ data-dependent stop with one host read per CG step.
 
 from __future__ import annotations
 
-import time
-
 import numpy as np
 import torch
 
@@ -261,14 +259,23 @@ def averaging_refresh(eng, max_span: int = 6, cap: int = 192, min_corr: int = 24
     Mutates ``eng.global_poses`` and the map's points on ``eng.device``; the
     caller runs the final global BA afterwards. Its time goes to
     ``eng.stage_times["chain_refresh"]``, the edge-scale solve's (host
-    bookkeeping and the CG with its host reads) also to
-    ``["chain_refresh.scales"]``."""
-    t0 = time.perf_counter()
+    bookkeeping and the CG with its host reads) to its child span
+    ``chain_refresh.scales``; a skipped refresh leaves neither."""
+    span = eng._stage("chain_refresh")
+    if _refresh(eng, max_span, cap, min_corr):
+        eng._stage_end(span)
+    else:
+        eng._timer.close(span, time_as=None)
+        eng.spans.remove(span)
+
+
+def _refresh(eng, max_span: int, cap: int, min_corr: int) -> bool:
+    """``averaging_refresh``'s work; False where it skipped the refresh."""
     dev = eng.device
     frames, tracks, xy = eng.map.observations()
     C = len(eng.global_poses)
     if C < 3 or len(frames) == 0:
-        return
+        return False
     edge_i, edge_j, p1, p2, mask, tid = collect_edge_correspondences(
         np.asarray(frames), np.asarray(tracks), np.asarray(xy, np.float64),
         C, max_span, cap, min_corr,
@@ -276,7 +283,7 @@ def averaging_refresh(eng, max_span: int = 6, cap: int = 192, min_corr: int = 24
     E = len(edge_i)
     if E < C - 1:
         eng.warnings.append(f"chain_refresh: only {E} usable edges for {C} cameras; skipped")
-        return
+        return False
     # A cut component would get a free gauge from the averaging Laplacian:
     # keep the chain instead.
     parent = np.arange(C)
@@ -294,7 +301,7 @@ def averaging_refresh(eng, max_span: int = 6, cap: int = 192, min_corr: int = 24
             "chain_refresh: track-derived edge graph is disconnected; "
             "keeping the chain solution"
         )
-        return
+        return False
 
     def dt(a, dtype=torch.float32):
         return torch.as_tensor(np.asarray(a), device=dev).to(dtype)
@@ -316,9 +323,9 @@ def averaging_refresh(eng, max_span: int = 6, cap: int = 192, min_corr: int = 24
     c_chain = -np.einsum("cij,ci->cj", R_chain.cpu().numpy().astype(np.float64), tv)
     lam_chain = np.maximum(np.linalg.norm(c_chain[edge_i] - c_chain[edge_j], axis=1), 1e-6)
     z1_np, z2_np = z1.cpu().numpy(), z2.cpu().numpy()
-    t_scales = time.perf_counter()   # the fetches above end the device's queue
+    scales = eng._timer.open("chain_refresh.scales")   # the fetches above end the device's queue
     lam = solve_edge_scales(edge_i, edge_j, tid, mask, z1_np, z2_np, lam_chain, device=dev)
-    eng.stage_times["chain_refresh.scales"] = time.perf_counter() - t_scales
+    eng._timer.close(scales, time_as=None)
 
     rvecs, ts, R, _c = _average_poses(
         R_rel, dt(edge_i, torch.int64), dt(edge_j, torch.int64), dt(w), R_chain, dt(lam),
@@ -350,6 +357,4 @@ def averaging_refresh(eng, max_span: int = 6, cap: int = 192, min_corr: int = 24
                                      obs_w=dt(ww), gn_iters=8)
     eng.map.update_points(X.cpu().numpy().astype(np.float64)[:T])
     eng.warnings.append(f"chain_refresh: averaged {E} track-derived edges over {C} cameras")
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
-    eng.stage_times["chain_refresh"] = time.perf_counter() - t0
+    return True

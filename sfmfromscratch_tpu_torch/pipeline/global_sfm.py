@@ -44,7 +44,6 @@ from __future__ import annotations
 import dataclasses
 import shutil
 import tempfile
-import time
 from typing import Dict, List, Optional
 
 import numpy as np
@@ -208,7 +207,7 @@ class GlobalSfmEngine(SfmEngine):
         consecutive pair, take each pair's median displacement of its
         matches, and start a new keyframe whenever the flow accumulated since
         the last one reaches the target; the last image is always one."""
-        t0 = time.perf_counter()
+        span = self._stage("keyframes")
         C = self.max_img
         res, p1, p2 = self._match_pair_list(feats, [(i, i + 1) for i in range(1, C)])
         d = torch.linalg.norm(p2 - p1, dim=-1)
@@ -230,7 +229,7 @@ class GlobalSfmEngine(SfmEngine):
             kfs.append(C)
         self._auto_kfs = kfs
         self.warnings.append(f"auto keyframes: {len(kfs)}/{C} at flow target {tau:.1f} px")
-        self._stage_end("keyframes", t0)
+        self._stage_end(span)
 
     def _prepare_pair_selection(self, feats: Features) -> None:
         if self.keyframe_step == "auto" and self._auto_kfs is None:
@@ -288,13 +287,14 @@ class GlobalSfmEngine(SfmEngine):
         (adaptive, or fixed-count at ``rel_num_hypotheses``), Sampson refinement of every edge over its inlier set, the
         planar-degeneracy fix, then edge weights and inlier sets
         (global_sfm.py:338-476)."""
-        t0 = time.perf_counter()
+        span = self._stage("relative_poses")
         pairs = sorted([k for k in self.pair_geometry if k[0] < k[1]],
                        key=lambda k: (k[1] - k[0], k[0]))   # consecutive edges first
         pgs_all = [self.pair_geometry[k] for k in pairs]
         E = len(pairs)
         self._edges = pairs
         if E:
+            child = self._timer.open("relpose_ransac")
             stack = lambda f, dt=torch.float32: self._dev(np.stack([getattr(pg, f) for pg in pgs_all]), dt)
             p1, p2, K1, K2 = stack("p1"), stack("p2"), stack("K1"), stack("K2")
             mask = stack("mask", torch.bool)
@@ -307,8 +307,7 @@ class GlobalSfmEngine(SfmEngine):
             R_np, t_np, inl_np, ninl_np, che_np = (
                 v.cpu().numpy() for v in (res.R, res.t, res.inliers, res.num_inliers,
                                           res.cheirality_ok))
-            self._sync()
-            self.stage_times["relpose_ransac"] = time.perf_counter() - t0
+            child = self._stage_end(child, then="relpose_refine", time_as=None)
             inl_masks = list(inl_np)
             ninl = ninl_np.astype(np.float64)
             che = che_np.astype(bool)
@@ -326,8 +325,7 @@ class GlobalSfmEngine(SfmEngine):
             self._edge_R = R_ref[:E].cpu().numpy().astype(np.float64)
             self._edge_t = t_ref[:E].cpu().numpy().astype(np.float64)
             che = che & (rms[:E].cpu().numpy() < 4.0)
-            self.stage_times["relpose_refine"] = (
-                time.perf_counter() - t0 - self.stage_times["relpose_ransac"])
+            self._timer.close(child, time_as=None)
             self._fix_planar_degenerate_edges(pairs, pgs_all, inl_masks, ninl, Eb)
         else:
             self._edge_R, self._edge_t = np.zeros((0, 3, 3)), np.zeros((0, 3))
@@ -338,7 +336,7 @@ class GlobalSfmEngine(SfmEngine):
         self._edge_w = np.where(good, ninl, 0.0)
         for e, k in enumerate(pairs):
             self._edge_inl[k] = inl_masks[e] if good[e] else np.zeros_like(inl_masks[e])
-        self._stage_end("relative_poses", t0)
+        self._stage_end(span)
 
     def _relative_pose_batch(self, p1, p2, K1, K2, mask, draw=None, uniforms=None):
         """Essential RANSAC of a batch of pairs: adaptive (``draw`` may
@@ -692,7 +690,7 @@ class GlobalSfmEngine(SfmEngine):
         rotation gate, repair again, translation directions refit under the
         averaged rotations, edge scales, walk init and translation
         averaging."""
-        t0 = time.perf_counter()
+        span = self._stage("motion_averaging")
         C = self.max_img
         dev = self.device
         w_pre = np.asarray(self._edge_w, np.float64).copy()
@@ -833,7 +831,7 @@ class GlobalSfmEngine(SfmEngine):
             edge_s=_pad_edges(self._dev(lam), Eb, 1.0),
         )
         self.R_cams, self.c_cams = R.cpu().numpy(), c.cpu().numpy()
-        self._stage_end("motion_averaging", t0)
+        self._stage_end(span)
 
     def _edge_scales(self, z1: np.ndarray, z2: np.ndarray, nz: np.ndarray) -> np.ndarray:
         """Relative baseline length per edge from two-view depth ratios along
@@ -909,7 +907,7 @@ class GlobalSfmEngine(SfmEngine):
     def _build_tracks(self, feats: Features) -> None:
         """Union-find tracks over every pair's inlier matches, then flat
         observation lists from the keypoint table (global_sfm.py:1172-1234)."""
-        t0 = time.perf_counter()
+        span = self._stage("tracks")
         C = self.max_img
         cap = feats.keypoints.capacity
         xf_np, yf_np = feats.keypoints.xf.cpu().numpy(), feats.keypoints.yf.cpu().numpy()
@@ -951,14 +949,14 @@ class GlobalSfmEngine(SfmEngine):
             m = self._obs_cam == (i - 1)
             xy[m] = self._kp_xy[i][self._obs_kp[m]]
         self._obs_xy = xy
-        self._stage_end("tracks", t0)
+        self._stage_end(span)
 
     def _triangulate(self) -> None:
         """Every track triangulated at once by multiview DLT + GN on the
         device (on the JAX engine's bucketed lists), then observations gated
         on the host by cheirality and reprojection error
         (global_sfm.py:1236-1288)."""
-        t0 = time.perf_counter()
+        span = self._stage("triangulate")
         C = self.max_img
         K = np.stack([self._intrinsics(i) for i in range(1, C + 1)])
         R = np.asarray(self.R_cams, np.float64)
@@ -972,7 +970,7 @@ class GlobalSfmEngine(SfmEngine):
         T = self._num_points
         if T == 0:
             self._X = np.zeros((0, 3))
-            self._stage_end("triangulate", t0)
+            self._stage_end(span)
             return
         Ob, Tb = _bucket(O), _bucket(T)
         obs_cam = np.zeros(Ob, np.int64); obs_cam[:O] = self._obs_cam
@@ -1002,7 +1000,7 @@ class GlobalSfmEngine(SfmEngine):
         self._obs_xy = self._obs_xy[ok]
         self._X = X[uniq]
         self._num_points = len(uniq)
-        self._stage_end("triangulate", t0)
+        self._stage_end(span)
 
     def _populate_map(self) -> None:
         """Fill the map and pose lists with the incremental engine's result
@@ -1024,12 +1022,12 @@ class GlobalSfmEngine(SfmEngine):
         keyframes and F-filter those pairs, link the inliers to the
         keyframes' tracks, and solve every frame's pose at once; inlier
         observations join the map before the final BA."""
-        t0 = time.perf_counter()
         kfs = self.keyframes
         kf_set = set(kfs)
         non_kf = [f for f in range(1, self.max_img + 1) if f not in kf_set]
         if not non_kf:
             return
+        span = self._stage("register")
         reg_pairs = []
         for f in non_kf:
             below = max((k for k in kfs if k < f), default=None)
@@ -1039,7 +1037,7 @@ class GlobalSfmEngine(SfmEngine):
                     reg_pairs.append((k, f))
         self._register_frames(feats.keypoints.capacity, non_kf,
                               self._registration_matches(feats, reg_pairs))
-        self._stage_end("register", t0)
+        self._stage_end(span)
 
     def _registration_matches(self, feats: Features, reg_pairs) -> Dict[tuple, tuple]:
         """(keyframe, frame) pairs matched in one launch and F-filtered in
@@ -1145,7 +1143,7 @@ class GlobalSfmEngine(SfmEngine):
         state back, each window solve sharded over ``mesh`` when there is
         one. Every rank keeps its own store. No focal self-calibration on
         this path."""
-        t0 = time.perf_counter()
+        span = self._stage("ba(stream)")
         frames, tracks, xy = self.map.observations()
         cam_params = np.array([np.hstack([rv, t]) for rv, t in self.global_poses])
         root = tempfile.mkdtemp(prefix="mapblocks_")
@@ -1170,7 +1168,7 @@ class GlobalSfmEngine(SfmEngine):
             self.stream_stats = stats
         finally:
             shutil.rmtree(root, ignore_errors=True)
-        self._stage_end("ba(stream)", t0)
+        self._stage_end(span)
 
     def _ba_rounds(self) -> None:
         """Up to ``ba_rounds`` bundle adjustments with camera 0 frozen (the
@@ -1178,9 +1176,9 @@ class GlobalSfmEngine(SfmEngine):
         between them; stops early when a regate drops nothing."""
         err_before = None
         for r in range(self.ba_rounds):
-            t_r = time.perf_counter()
+            span = self._stage(f"ba.round{r + 1}")
             self._global_ba(freeze_before=1)
-            self.stage_times[f"ba.round{r + 1}"] = time.perf_counter() - t_r
+            self._timer.close(span)   # _global_ba's span ended at a synchronize
             if err_before is None:
                 err_before = self.errors_before_after_ba[0]
             if r < self.ba_rounds - 1 and self._regate_observations() == 0:
@@ -1223,22 +1221,21 @@ class GlobalSfmEngine(SfmEngine):
     # ------------------------------------------------------------------ run
 
     def run(self) -> "GlobalSfmEngine":
-        t0 = time.perf_counter()
-        feats = self._extract_all_features()
-        self._prepare_pair_selection(feats)
-        self._match_pairs(feats)
-        self._relative_poses()
-        self._motion_averaging()
-        self._build_tracks(feats)
-        self._triangulate()
-        self._populate_map()
-        if self.keyframed:
-            self._register_nonkeyframes(feats)
-        if self.stream_ba_window is not None:
-            self._stream_ba()
-        else:
-            self._ba_rounds()
-        self.stage_times["total"] = time.perf_counter() - t0
+        with self._timer.run():
+            feats = self._extract_all_features()
+            self._prepare_pair_selection(feats)
+            self._match_pairs(feats)
+            self._relative_poses()
+            self._motion_averaging()
+            self._build_tracks(feats)
+            self._triangulate()
+            self._populate_map()
+            if self.keyframed:
+                self._register_nonkeyframes(feats)
+            if self.stream_ba_window is not None:
+                self._stream_ba()
+            else:
+                self._ba_rounds()
         if self.model_name is not None and is_writer(self.mesh):
             self.save_data()
         return self

@@ -53,7 +53,6 @@ from __future__ import annotations
 
 import hashlib
 import os
-import time
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -93,6 +92,7 @@ from sfmfromscratch_tpu_torch.types import Features, Keypoints, PairGeometry
 from sfmfromscratch_tpu_torch.utils.device import resolve_device
 from sfmfromscratch_tpu_torch.utils.fetch import device_get_packed
 from sfmfromscratch_tpu_torch.utils.precision import f32_precision
+from sfmfromscratch_tpu_torch.utils.profiling import Span, StageTimer
 
 
 def scatter_last(table: torch.Tensor, idx: torch.Tensor, vals: torch.Tensor) -> torch.Tensor:
@@ -347,7 +347,7 @@ class SfmEngine:
         # Track id per keypoint slot, per image (index association).
         self._kp_tracks: Dict[int, np.ndarray] = {}
         self.errors_before_after_ba: Tuple[float, float] = (np.nan, np.nan)
-        self.stage_times: Dict[str, float] = {}
+        self._timer = StageTimer()
         # The padded problem and the result of the last bundle adjustment.
         self.ba_problem = None
         self.ba_result = None
@@ -377,17 +377,46 @@ class SfmEngine:
     def _dev(self, a, dtype=torch.float32) -> torch.Tensor:
         return torch.as_tensor(np.asarray(a), device=self.device).to(dtype)
 
-    def _sync(self) -> None:
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+    @property
+    def stage_times(self) -> Dict[str, float]:
+        """Seconds by stage name: the durations of the run's spans summed by
+        name (the root span ``run`` as ``"total"``; the child spans
+        ``decode``, ``filter.ransac``, ``relpose_ransac``, ``relpose_refine``
+        and ``chain_refresh.scales`` are left out)."""
+        return self._timer.times
 
-    def _stage_end(self, name: str, t0: float) -> float:
-        """Close stage ``name`` at a device synchronize (its time adds to an
-        earlier one of the same name); returns the time."""
-        self._sync()
-        t = time.perf_counter()
-        self.stage_times[name] = self.stage_times.get(name, 0.0) + t - t0
-        return t
+    @stage_times.setter
+    def stage_times(self, times: Dict[str, float]) -> None:
+        # A fresh recorder holding ``times`` (for engines built without
+        # __init__).
+        self._timer = StageTimer()
+        self._timer.times.update(times)
+
+    @property
+    def spans(self) -> List[Span]:
+        """The last run's spans (``utils/profiling.Span``), in the order they
+        opened: name, parent, run id, start and end on the profiler's clock,
+        counters."""
+        return self._timer.spans
+
+    def _stage(self, name: str) -> Span:
+        """Open stage ``name`` inside the innermost open one."""
+        return self._timer.open(name)
+
+    def _stage_end(self, span: Span, then: Optional[str] = None,
+                   time_as: Optional[str] = "") -> Optional[Span]:
+        """Close ``span`` at a device synchronize (its time adds to
+        ``stage_times`` under its name, or under ``time_as``; None keeps it
+        out), then open stage ``then`` if one is given."""
+        self._timer.close(span, self.device, time_as)
+        return self._stage(then) if then else None
+
+    def _decode(self, load, files: List[str]) -> list:
+        """``load`` of every file, in the host span ``decode``."""
+        span = self._timer.open("decode")
+        out = [load(f) for f in files]
+        self._timer.close(span, time_as=None)
+        return out
 
     # ------------------------------------------------------------------ stages
 
@@ -407,15 +436,15 @@ class SfmEngine:
         padded with copies of the first image to a multiple of the axis,
         each rank extracts its contiguous block and the Features are
         all-gathered."""
-        t0 = time.perf_counter()
+        span = self._stage("features")
         scale, dev = self.config.scale_factor, self.device
         files = [self._image_file(i) for i in range(1, self.max_img + 1)]
         if self.feature_extractor is not None:
             feats = _stack_features([
-                self.feature_extractor(preprocess_image(load_image(f), scale, dev))
-                for f in files])
+                self.feature_extractor(preprocess_image(img, scale, dev))
+                for img in self._decode(load_image, files)])
         else:
-            raws = [load_image_u8(f) for f in files]
+            raws = self._decode(load_image_u8, files)
             if len({r.shape[:2] for r in raws}) == 1 and self.max_img > 1:
                 ax = mesh_axis(self.mesh, "data")
                 rank, size = (ax.rank, ax.size) if ax is not None else (0, 1)
@@ -439,7 +468,7 @@ class SfmEngine:
                     for r in raws])
         cap = feats.keypoints.capacity
         self._kp_tracks = {i: np.full(cap, -1, dtype=np.int64) for i in range(1, self.max_img + 1)}
-        self._stage_end("features", t0)
+        self._stage_end(span)
         return feats
 
     def _use_scan_chain(self) -> bool:
@@ -468,21 +497,21 @@ class SfmEngine:
         mcfg = self.config.matcher
         gen = self._generator
         N = self.max_img
-        t0 = time.perf_counter()
+        span = self._stage("matching")
 
         ar = torch.arange(N - 1, device=dev)
         res, p1, p2 = match_pairs_batch(
             feats.descriptors, feats.keypoints.mask, feats.keypoints.xf, feats.keypoints.yf,
             ar, ar + 1, ratio_threshold=mcfg.ratio_threshold, max_matches=mcfg.max_matches,
         )
-        t0 = self._stage_end("matching", t0)
+        span = self._stage_end(span, then="filter")
 
         # Every pair but (1, 2) is F-filtered; the bootstrap takes (1, 2)'s
         # raw ratio-test mask (incremental.py:799-802).
         hyp = rcfg.max_hypotheses() if rcfg.adaptive else self._num_hyp
         filt_rows = self._filter(p1[1:], p2[1:], res.mask[1:])
         filt = torch.cat([res.mask[:1], filt_rows])
-        t0 = self._stage_end("filter", t0)
+        span = self._stage_end(span, then="bootstrap")
 
         K_host = [self._intrinsics(i) for i in range(1, N + 1)]
         Kt = torch.as_tensor(np.stack(K_host), dtype=torch.float32, device=dev)
@@ -502,13 +531,13 @@ class SfmEngine:
         kp_tracks0 = scatter_last(
             torch.full((kp_capacity,), -1, dtype=torch.int64, device=dev),
             torch.where(in_cap, idx2_0, kp_capacity), tid)
-        t0 = self._stage_end("bootstrap", t0)
+        span = self._stage_end(span, then="chain")
 
         chain = chain_scan(
             gen, p1[1:], p2[1:], res.indices[1:, :, 0], res.indices[1:, :, 1], filt[1:],
             Kt[2:], kp_tracks0, points0, n0, P2_0, self._pnp_hyp, rcfg.pnp_reproj_threshold,
         )
-        t0 = self._stage_end("chain", t0)
+        span = self._stage_end(span, then="fetch")
 
         # One fetch of everything the host map needs.
         rvecs, ts, oks, _ninl, obs_track, obs_xy, points, n_points = chain
@@ -525,15 +554,18 @@ class SfmEngine:
         self.global_poses.append((np.asarray(rvec0_np, np.float64), np.asarray(tvec0_np, np.float64)))
         self.global_K.append(np.asarray(K_host[1], np.float64))
         self._finish_chain(rvecs_np, ts_np, oks_np, obs_track_np, obs_xy_np, points_np, K_host[2:])
-        self._stage_end("fetch", t0)
+        self._stage_end(span)
 
     def _filter(self, p1: torch.Tensor, p2: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
         """Epipolar inlier masks of P matched pairs (the JAX engine's filter
         branches, ``incremental.py:318-327, 706-722``): adaptive F-RANSAC in
         stages up to ``max_hypotheses()``, or with ``adaptive=False``
         fixed-count F-RANSAC of ``num_iterations()``. Records the hypotheses
-        each pair used in ``filter_hyps_used``."""
+        each pair used in ``filter_hyps_used`` and their sum as the counter
+        ``hyps`` of the span ``filter.ransac``, which ends at the adaptive
+        filter's fetch of those counts."""
         rcfg = self.config.ransac
+        span = self._timer.open("filter.ransac")
         if rcfg.adaptive:
             fres = ransac_fundamental_adaptive_batch(
                 self._generator, p1, p2, mask, max_hypotheses=rcfg.max_hypotheses(),
@@ -546,6 +578,8 @@ class SfmEngine:
                                             num_hypotheses=self._num_hyp,
                                             threshold=rcfg.epipolar_threshold)
             self.filter_hyps_used = np.full(p1.shape[0], self._num_hyp)
+        span.counters["hyps"] = int(self.filter_hyps_used.sum())
+        self._timer.close(span, time_as=None)
         return fres.inliers
 
     def _set_pair(self, i1: int, i2: int, p1, p2, idx1, idx2, mask, K1, K2) -> None:
@@ -639,7 +673,7 @@ class SfmEngine:
         A resumed run draws fewer uniforms, so it is deterministic given its
         restart point but differs from an uninterrupted one."""
         dev = self.device
-        t0 = time.perf_counter()
+        span = self._stage("matching")
         filter_all = bool(getattr(self, "_filter_all_pairs", False))
         pairs = self._candidate_pairs(feats)
         if self._pair_shard is not None:
@@ -654,11 +688,13 @@ class SfmEngine:
                 self.warnings.append(f"pair cache: resumed {len(cached)}/{len(pairs)} pairs")
         todo = [k for k in pairs if k not in cached]
         self._last_match_computed = len(todo)
+        if not todo:
+            span.name = "filter"   # nothing to match: the whole stage is the filter's
 
         results = {}
         if todo:
             res, p1, p2 = self._match_pair_list(feats, todo)
-            t0 = self._stage_end("matching", t0)
+            span = self._stage_end(span, then="filter")
             rows = [r for r, k in enumerate(todo) if filter_all or k != (1, 2)]
             filt = res.mask
             if rows:
@@ -684,14 +720,14 @@ class SfmEngine:
                 tmp = f"{f}.{os.getpid()}.tmp.npz"
                 np.savez(tmp, tag=tag, p1=pg.p1, p2=pg.p2, idx1=pg.idx1, idx2=pg.idx2, mask=pg.mask)
                 os.replace(tmp, f)
-        self._stage_end("filter", t0)
+        self._stage_end(span)
 
     def _bootstrap(self):
         """Pair (1, 2): pose and triangulation (``incremental.py:1121-1153``)
         with one fetch; the bootstrap's tracks go into the map and image 2's
         keypoint table. Returns the inlier points, their image-2 pixels and
         track ids, and the second camera's projection (on the device)."""
-        t0 = time.perf_counter()
+        span = self._stage("bootstrap")
         pg = self.pair_geometry[(1, 2)]
         rcfg = self.config.ransac
         inl, X, rvec, t, P2 = bootstrap(
@@ -709,17 +745,17 @@ class SfmEngine:
         self._kp_tracks[2][pg.idx2[inl_np]] = track_ids[inl_np]
         self.global_poses.append((rvec_np.astype(np.float64), t_np.astype(np.float64)))
         self.global_K.append(np.asarray(pg.K2, np.float64))
-        self._stage_end("bootstrap", t0)
+        self._stage_end(span)
         return X_np[inl_np], p2_np[inl_np], track_ids[inl_np], P2
 
     def _chain_scan(self, P2: torch.Tensor) -> None:
         """The device scan chain on the staged path's pair geometry and
         keypoint table (``incremental.py:1487-1557``); with two images there
         is no frame to chain."""
-        t0 = time.perf_counter()
+        span = self._stage("chain")
         pgs = [self.pair_geometry[(i, i + 1)] for i in range(2, self.max_img)]
         if not pgs:
-            self._stage_end("chain", t0)
+            self._stage_end(span)
             return
         stack = lambda f, dt=torch.float32: self._dev(np.stack([getattr(pg, f) for pg in pgs]), dt)
         max_points = self.config.max_points
@@ -735,7 +771,7 @@ class SfmEngine:
         rvecs, ts, oks, _ninl, obs_track, obs_xy, points, n_points = chain
         host = [v.cpu().numpy() for v in (rvecs, ts, oks, obs_track, obs_xy, points[:int(n_points)])]
         self._finish_chain(*host, [pg.K2 for pg in pgs])
-        self._stage_end("chain", t0)
+        self._stage_end(span)
 
     @staticmethod
     def _associate_by_distance(prev_obs_2d: np.ndarray, pair_p1: np.ndarray,
@@ -762,7 +798,7 @@ class SfmEngine:
         ``checkpoint_every`` images. The PnP uniforms of every frame are
         drawn at once, as the scan chain draws them; ``uniforms`` (F,
         num_hypotheses, 3) replaces the draw."""
-        t0 = time.perf_counter()
+        span = self._stage("chain")
         rcfg = self.config.ransac
         if uniforms is None:
             uniforms = torch.rand((self.max_img - 2, self._pnp_hyp, 3), generator=self._generator,
@@ -857,7 +893,7 @@ class SfmEngine:
             if self.checkpoint_every and j % self.checkpoint_every == 0 and is_writer(self.mesh):
                 path = self.checkpoint_path or os.path.join(self.output_dir, "checkpoint.npz")
                 save_checkpoint(self, path, next_frame=j + 1)
-        self._stage_end("chain", t0)
+        self._stage_end(span)
 
     def _recover_pose(self, pg: PairGeometry, i: int, j: int,
                       uniforms: Optional[torch.Tensor] = None):
@@ -931,7 +967,7 @@ class SfmEngine:
         the JAX package's padded problem so the same Schur backend is
         chosen. Its time adds to ``stage_times[stage]``: ``"ba"``, or
         ``"local_ba"`` for the chain's windowed solves."""
-        t0 = time.perf_counter()
+        span = self._stage(stage)
         frames, tracks, xy = self.map.observations()
         cam_params = np.array([np.hstack([rv, t]) for rv, t in self.global_poses])
         num_cams = len(cam_params)
@@ -972,26 +1008,25 @@ class SfmEngine:
         self.global_poses = [(np.asarray(c[:3], np.float64), np.asarray(c[3:], np.float64))
                              for c in cams]
         self.ba_problem, self.ba_result = problem, res
-        self._stage_end(stage, t0)
+        self._stage_end(span)
 
     # ------------------------------------------------------------------ driver
 
     def run(self) -> "SfmEngine":
-        t0 = time.perf_counter()
-        feats = self._extract_all_features()
-        if self._fused_front_eligible(feats):
-            self._run_front(feats)
-        else:
-            self._match_pairs(feats)
-            p3d, p2_obs, track_ids, P2 = self._bootstrap()
-            if self._use_scan_chain():
-                self._chain_scan(P2)
+        with self._timer.run():
+            feats = self._extract_all_features()
+            if self._fused_front_eligible(feats):
+                self._run_front(feats)
             else:
-                self._chain(p3d, p2_obs, track_ids, P2)
-        if self.chain_refresh == "averaging":
-            averaging_refresh(self)
-        self._global_ba()
-        self.stage_times["total"] = time.perf_counter() - t0
+                self._match_pairs(feats)
+                p3d, p2_obs, track_ids, P2 = self._bootstrap()
+                if self._use_scan_chain():
+                    self._chain_scan(P2)
+                else:
+                    self._chain(p3d, p2_obs, track_ids, P2)
+            if self.chain_refresh == "averaging":
+                averaging_refresh(self)
+            self._global_ba()
         if self.model_name is not None and is_writer(self.mesh):
             self.save_data()
         return self
