@@ -21,8 +21,13 @@ Phases, each printing JSON lines:
              kernel line reports as ``ms``); ``graph_ms``, a CUDA-graph
              replay of the bare launches, as a cross-check; and ``call_ms``,
              back-to-back wrapper calls between CUDA events, the time a
-             caller pays per call (host path included). ``--only-kernels``
-             stops after this phase and prints no result line.
+             caller pays per call (host path included). Then the 8x9
+             null-vector kernel against ``torch.linalg.qr`` on the card: a
+             million random systems, rank-7 and duplicate-row systems, the
+             adaptive RANSACs' own minimal samples, non-finite systems, one
+             launch a call, results independent of the batch's shape, and its
+             times at the engines' stage shapes. ``--only-kernels`` stops
+             after this phase and prints no result line.
 3. slice   — ``reconstruct_two_view`` on views 1 and 2 of the bench scene at
              the bench settings, through both kernels (their launch counts are
              zeroed just before the timed run and read just after); the pose is
@@ -246,6 +251,35 @@ MATCH_MODES = (False, True)
 # Checked only: a one-row database (second best is the sentinel), ragged
 # tiles on both sides, and widths the wrapper pads to a multiple of 32.
 MATCH_EDGE_CASES = [(2, 37, 1, 100), (3, 130, 129, 64), (1, 5, 300, 40)]
+
+# The null-vector kernel (csrc/nullvec_qr.cu) against torch.linalg.qr on the
+# card. Householder QR in float32 is backward stable: both vectors lie within
+# about eps cond(A) of the exact one, so their distance is held to a bound
+# that scales with the system's condition number (sigma_1 / sigma_8, float64
+# on the host), and to NULLVEC_TOL outright where cond(A) <= NULLVEC_COND_MAX.
+# Rank-deficient systems have no unique null vector: there both results are
+# held to the residual and the unit norm.
+# A Householder reflector takes the sign opposite to its sub-column's first
+# entry (alpha); where |alpha| is at rounding level the two QRs may choose
+# opposite signs and return -v for v, which is the same 8-point F up to
+# sign. A sign flip is accepted only there: where a float64 pass over the
+# system finds a reflector with |alpha| <= NULLVEC_FLIP_ALPHA of its
+# sub-column's norm, with |v + v_ref| inside the bound.
+NULLVEC_SYSTEMS = 1 << 20       # random full-rank systems held against torch.linalg.qr
+NULLVEC_DEFICIENT = 1 << 16     # rank-7 systems, and systems with a duplicated row
+NULLVEC_TOL = 1e-5              # max |v - v_ref| where cond(A) <= NULLVEC_COND_MAX, signs equal
+NULLVEC_COND_MAX = 10.0
+NULLVEC_COND_TOL = 1e-6         # every full-rank system: |v -+ v_ref| <= this * cond(A)
+NULLVEC_FLIP_ALPHA = 1e-4
+NULLVEC_RESID = 1e-5            # ||A v|| <= NULLVEC_RESID * ||A||_F
+NULLVEC_NORM = 1e-6             # | ||v|| - 1 |
+# Timed shapes: a glob20_ring F-filter stage (54 window pairs x 512), an
+# inc10_bench one (9 x 512), a glob20_ring relative-pose stage (54 x 128),
+# and a million systems. The engine's own minimal samples come from the
+# adaptive F-RANSAC and essential RANSAC on NULLVEC_PAIRS synthetic pairs.
+NULLVEC_SHAPES = {"glob20_filter_stage": (54, 512), "inc10_filter_stage": (9, 512),
+                  "glob20_relpose_stage": (54, 128), "million": (1 << 20,)}
+NULLVEC_PAIRS = 16
 
 # The slice on the card against the port's own CPU run on the same images.
 # Response maps agree to ~1e-6 of their range, so keypoint sets agree all but
@@ -1434,6 +1468,279 @@ def match_phase(dev, peaks):
                                  "2499 x 2499 x 128, the engine's shape", path_keys),
         ))
     return kernels
+
+
+def _cond_host(A):
+    """sigma_1 / sigma_8 of (n, 8, 9) systems, from the eigenvalues of
+    A A^T in float64 on the host."""
+    import numpy as np
+
+    a = A.double().cpu().numpy()
+    ev = np.linalg.eigvalsh(a @ a.transpose(0, 2, 1))
+    return np.sqrt(np.maximum(ev[:, -1], 0.0) / np.maximum(ev[:, 0], 1e-300))
+
+
+def _nullvec_truth(A):
+    """Unit null vectors of (n, 8, 9) systems in float64 on the host (the
+    last right-singular vector), defined up to sign."""
+    import numpy as np
+
+    return np.linalg.svd(A.double().cpu().numpy())[2][:, -1, :]
+
+
+def _min_alpha_share(A):
+    """Per (n, 8, 9) system, the least |alpha| / ||sub-column|| over the
+    eight reflectors of the Householder QR of A^T, in float64 on the host."""
+    import numpy as np
+
+    M = A.double().cpu().numpy().transpose(0, 2, 1).copy()
+    share = np.full(M.shape[0], np.inf)
+    for j in range(8):
+        x = M[:, j:, j]
+        alpha, norm = x[:, 0], np.linalg.norm(x, axis=-1)
+        share = np.minimum(share, np.abs(alpha) / np.maximum(norm, 1e-300))
+        beta = -np.copysign(norm, alpha)
+        v = x.copy()
+        v[:, 0] -= beta
+        v /= np.where(v[:, :1] == 0, 1.0, v[:, :1])
+        tau = np.where(norm > 0, (beta - alpha) / np.where(beta == 0, 1.0, beta), 0.0)
+        w = np.einsum("bi,bij->bj", v, M[:, j:, j:])
+        M[:, j:, j:] -= tau[:, None, None] * v[:, :, None] * w[:, None, :]
+    return share
+
+
+def _nullvec_against_qr(label, NK, A, cond=None):
+    """Kernel against ``nullvec_qr_plain`` (torch.linalg.qr on the card) on
+    (n, 8, 9) systems: residual and unit norm for all; where ``cond`` is
+    given (full rank), the distance to the QR's vector against
+    NULLVEC_COND_TOL * cond and, at cond <= NULLVEC_COND_MAX, against
+    NULLVEC_TOL with equal signs. Returns the numbers (with the four
+    systems nearest their bound, each vector's distance to the float64 null
+    vector up to sign beside), the failed gates and the QR's time."""
+    import numpy as np
+    import torch
+
+    v = NK.nullvec_8x9(A)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = NK.nullvec_qr_plain(A)
+    torch.cuda.synchronize()
+    plain_s = time.perf_counter() - t0
+    A64, An = A.double(), torch.linalg.norm(A.double().flatten(1), dim=-1)
+    resid = torch.linalg.norm((A64 @ v.double()[..., None])[..., 0], dim=-1) / An
+    ref_resid = torch.linalg.norm((A64 @ ref.double()[..., None])[..., 0], dim=-1) / An
+    norm_err = (torch.linalg.norm(v.double(), dim=-1) - 1.0).abs()
+    row = dict(systems=int(A.shape[0]), max_rel_residual=float(resid.max()),
+               max_norm_err=float(norm_err.max()), ref_max_rel_residual=float(ref_resid.max()))
+    failed = []
+    if not bool(torch.isfinite(v).all()):
+        failed.append(f"{label}: non-finite result")
+    if row["max_rel_residual"] > NULLVEC_RESID:
+        failed.append(f"{label}: ||A v|| / ||A|| {row['max_rel_residual']} > {NULLVEC_RESID}")
+    if row["max_norm_err"] > NULLVEC_NORM:
+        failed.append(f"{label}: | ||v|| - 1 | {row['max_norm_err']} > {NULLVEC_NORM}")
+    if cond is None:
+        return row, failed, plain_s
+    same_sign = ((v * ref).sum(-1) >= 0).cpu().numpy()
+    signed = (v - ref).abs().amax(-1).cpu().numpy().astype(np.float64)
+    diff = np.minimum(signed, (v + ref).abs().amax(-1).cpu().numpy().astype(np.float64))
+    good = cond <= NULLVEC_COND_MAX
+    over = diff / (NULLVEC_COND_TOL * cond)
+    flips = np.nonzero(~same_sign)[0]
+    alpha = _min_alpha_share(A[torch.as_tensor(flips, device=A.device)]) if len(flips) else []
+    row.update(max_abs_diff=float(diff.max()), max_cond=float(cond.max()),
+               max_diff_over_cond=float((diff / cond).max()), conditioned=int(good.sum()),
+               conditioned_max_abs_diff=float(signed[good].max()) if good.any() else None,
+               sign_flips=len(flips), conditioned_sign_flips=int((~same_sign[good]).sum()),
+               flips_min_alpha_share=[float(a) for a in alpha[:8]],
+               over_bound=int((over > 1.0).sum()))
+    worst = np.argsort(-over)[:4]
+    truth = _nullvec_truth(A[torch.as_tensor(worst, device=A.device)])
+    vw, rw = v[worst].double().cpu().numpy(), ref[worst].double().cpu().numpy()
+
+    def off(x, t):
+        return float(min(np.abs(x - t).max(), np.abs(x + t).max()))
+
+    row["worst"] = [dict(index=int(i), cond=float(cond[i]), diff=float(diff[i]),
+                         over=float(over[i]), resid=float(resid[i]), ref_resid=float(ref_resid[i]),
+                         kernel_off_truth=off(vw[k], truth[k]), ref_off_truth=off(rw[k], truth[k]))
+                    for k, i in enumerate(worst)]
+    if float(over.max()) > 1.0:
+        failed.append(f"{label}: |v -+ v_ref| {row['max_abs_diff']} over {NULLVEC_COND_TOL} * "
+                      f"cond(A) at {row['over_bound']} systems")
+    if len(flips) and float(np.max(alpha)) > NULLVEC_FLIP_ALPHA:
+        failed.append(f"{label}: a sign flip where every reflector's |alpha| / norm > "
+                      f"{NULLVEC_FLIP_ALPHA} ({row['flips_min_alpha_share']})")
+    if not good.any():
+        failed.append(f"{label}: no system with cond <= {NULLVEC_COND_MAX}")
+    elif row["conditioned_max_abs_diff"] > NULLVEC_TOL or row["conditioned_sign_flips"]:
+        failed.append(f"{label}: |v - v_ref| {row['conditioned_max_abs_diff']} (sign flips "
+                      f"{row['conditioned_sign_flips']}) at cond <= {NULLVEC_COND_MAX}")
+    return row, failed, plain_s
+
+
+def _synthetic_pairs(gen, dev, P, N, outliers=0.4):
+    """(P, N, 2) matched pixel coordinates of two 640x480 views of a random
+    scene (f = 1520.4 px, a baseline of 0.1 at depth 2-6, 0.5 px noise),
+    with ``outliers`` of the matches replaced by random points, and the
+    shared K."""
+    import math as _m
+
+    import torch
+
+    f, cx, cy = 1520.4, 320.0, 240.0
+    K = torch.tensor([[f, 0, cx], [0, f, cy], [0, 0, 1]], device=dev)
+    box = torch.tensor([1.6, 1.2, 4.0], device=dev)
+    X = torch.rand((P, N, 3), generator=gen, device=dev) * box - torch.tensor([0.8, 0.6, -2.0],
+                                                                              device=dev)
+    a = 4.0 * _m.pi / 180
+    R = torch.tensor([[_m.cos(a), 0, _m.sin(a)], [0, 1, 0], [-_m.sin(a), 0, _m.cos(a)]], device=dev)
+    t = torch.tensor([-0.1, 0.0, 0.0], device=dev)
+
+    def project(Y):
+        y = Y @ K.T
+        return y[..., :2] / y[..., 2:]
+
+    p1 = project(X) + 0.5 * torch.randn((P, N, 2), generator=gen, device=dev)
+    p2 = project(X @ R.T + t) + 0.5 * torch.randn((P, N, 2), generator=gen, device=dev)
+    bad = torch.rand((P, N), generator=gen, device=dev) < outliers
+    noise = torch.rand((P, N, 2), generator=gen, device=dev) * torch.tensor([640.0, 480.0],
+                                                                           device=dev)
+    p2 = torch.where(bad[..., None], noise, p2)
+    return p1, p2, K
+
+
+def _nullvec_engine_samples(dev, NK):
+    """The (8, 9) systems the engine's adaptive F-RANSAC and adaptive
+    essential RANSAC hand to the kernel on NULLVEC_PAIRS synthetic pairs of
+    2,500 matches, recorded at the wrapper, and the launches they made."""
+    import torch
+
+    from sfmfromscratch_tpu_torch.geometry.ransac import (
+        ransac_essential_pose_adaptive_batch, ransac_fundamental_adaptive_batch)
+
+    gen = torch.Generator(device=dev).manual_seed(3)
+    p1, p2, K = _synthetic_pairs(gen, dev, NULLVEC_PAIRS, 2500)
+    mask = torch.ones(p1.shape[:2], dtype=torch.bool, device=dev)
+    Ks = K.expand(NULLVEC_PAIRS, 3, 3)
+    seen, launch = [], NK._launch
+
+    def recording(A):
+        seen.append(A.detach().reshape(-1, 8, 9).clone())
+        return launch(A)
+
+    NK._launch = recording
+    n0, s0 = NK.launches, NK.systems
+    try:
+        f = ransac_fundamental_adaptive_batch(gen, p1, p2, mask)
+        n_f, s_f = NK.launches - n0, NK.systems - s0
+        e = ransac_essential_pose_adaptive_batch(gen, p1, p2, Ks, Ks, mask, stage_size=128)
+        torch.cuda.synchronize()
+    finally:
+        NK._launch = launch
+    return (torch.cat(seen), dict(
+        f_launches=n_f, f_systems=s_f, f_hyps=int(f.hyps_used.sum()),
+        f_inliers_min=int(f.num_inliers.min()), e_launches=NK.launches - n0 - n_f,
+        e_systems=NK.systems - s0 - s_f, e_strict=int(e.cheirality_ok.sum())))
+
+
+def nullvec_phase(dev, peaks):
+    """The null-vector kernel against torch.linalg.qr on the card: a million
+    random systems, rank-deficient ones, the engine's own minimal samples,
+    non-finite inputs, one launch a call and results that do not depend on
+    the batch's shape; then its times at the engines' stage shapes beside
+    its bound and the QR's time."""
+    import numpy as np
+    import torch
+
+    from sfmfromscratch_tpu_torch.ops.cuda import nullvec_kernel as NK
+    from sfmfromscratch_tpu_torch.ops.smallsvd import nullvec_lstsq
+
+    gen = torch.Generator(device=dev).manual_seed(4)
+    A = torch.randn((NULLVEC_SYSTEMS, 8, 9), generator=gen, device=dev)
+    random_row, failed, million_plain_s = _nullvec_against_qr("nullvec random", NK, A,
+                                                              _cond_host(A))
+
+    D = torch.randn((2, NULLVEC_DEFICIENT, 8, 9), generator=gen, device=dev)
+    w = torch.randn((NULLVEC_DEFICIENT, 2, 1), generator=gen, device=dev)
+    D[0, :, 7] = w[:, 0] * D[0, :, 5] + w[:, 1] * D[0, :, 6]       # rank 7
+    D[1, :, 7] = D[1, :, 6]                                           # a duplicated point
+    rank7, f7, _ = _nullvec_against_qr("nullvec rank-7", NK, D[0])
+    dup, fd, _ = _nullvec_against_qr("nullvec duplicate row", NK, D[1])
+
+    S, eng = _nullvec_engine_samples(dev, NK)
+    engine_row, fe, _ = _nullvec_against_qr("nullvec engine samples", NK, S, _cond_host(S))
+    engine_row.update(eng)
+    failed += f7 + fd + fe
+    if eng["f_launches"] < 1 or eng["e_launches"] < 1:
+        failed.append(f"engine samples: launches {eng}")
+    if eng["f_systems"] != eng["f_hyps"]:
+        failed.append(f"engine samples: F-RANSAC solved {eng['f_systems']} systems for "
+                      f"{eng['f_hyps']} hypotheses")
+
+    # Non-finite systems give NaN; their neighbours keep their bits.
+    B = A[:4096].clone()
+    B[1::7, 3, 4] = float("nan")
+    B[2::7, 0, 8] = float("inf")
+    bad = torch.zeros(4096, dtype=torch.bool, device=dev)
+    bad[1::7] = True
+    bad[2::7] = True
+    vb, va = NK.nullvec_8x9(B), NK.nullvec_8x9(A[:4096])
+    _check(bool(torch.isnan(vb[bad]).all()), "nullvec: a non-finite system gave a number")
+    _check(bool(torch.equal(vb[~bad], va[~bad])), "nullvec: a non-finite system moved another")
+
+    # One launch a call over every system; the batch's shape moves no bit.
+    shape = NULLVEC_SHAPES["glob20_filter_stage"]
+    G = A[: shape[0] * shape[1]].reshape(*shape, 8, 9)
+    n0, s0 = NK.launches, NK.systems
+    vg = nullvec_lstsq(G)
+    launches, systems = NK.launches - n0, NK.systems - s0
+    _check((launches, systems) == (1, shape[0] * shape[1]),
+           f"nullvec: {launches} launches for {systems} systems, want 1 for {shape[0] * shape[1]}")
+    _check(tuple(vg.shape) == (*shape, 9), f"nullvec: result shape {tuple(vg.shape)}")
+    whole = NK.nullvec_8x9(A)
+    _check(bool(torch.equal(vg.reshape(-1, 9), whole[: shape[0] * shape[1]])),
+           "nullvec: the batch's shape moved a result")
+    _check(bool(torch.equal(NK.nullvec_8x9(A[1000:1037]), whole[1000:1037])),
+           "nullvec: a sub-batch's results differ from the whole batch's")
+
+    rows = {}
+    for name, sh in NULLVEC_SHAPES.items():
+        n = int(np.prod(sh))
+        X = A[:n].reshape(*sh, 8, 9) if n <= A.shape[0] else None
+        row = dict(shape=[*sh, 8, 9], systems=n)
+        row.update(_kernel_times(lambda: NK.nullvec_8x9(X), lambda: NK._launch(X),
+                                 ("nullvec_qr_kernel",)))
+        if row["device_ms"] is not None:
+            # One activity a call: the mean over the activities the profiler
+            # kept (it drops some after the QR's millions of launches).
+            row["device_ms"] *= 20 / row["kernel_activities"]
+        if name == "million":
+            row["plain_ms"] = million_plain_s * 1e3
+        else:
+            row["plain_ms"] = _cuda_ms(lambda: NK.nullvec_qr_plain(X), reps=1, warm=1)
+        row["bound_ms"] = max(NK.NULLVEC_BYTES * n / peaks["bytes_per_s"],
+                              NK.NULLVEC_FLOPS * n / peaks["fp32_flops"]) * 1e3
+        rows[name] = row
+    _print({"phase": "nullvec", "tol": NULLVEC_TOL, "cond_max": NULLVEC_COND_MAX,
+            "cond_tol": NULLVEC_COND_TOL, "resid_tol": NULLVEC_RESID, "norm_tol": NULLVEC_NORM,
+            "random": random_row, "rank7": rank7, "duplicate_row": dup,
+            "engine_samples": engine_row, "launches_per_call": launches, "cases": rows})
+    _check(not failed, "; ".join(failed))
+    main = rows["glob20_filter_stage"]
+    return dict(
+        name="nullvec_8x9", route="cuda", source="sfmfromscratch_tpu_torch/csrc/nullvec_qr.cu",
+        replaces="none: XLA's complete QR in sfmfromscratch_tpu/ops/smallsvd.py:nullvec_lstsq; "
+                 "in the port torch.linalg.qr(A^T, mode='complete'), ~12 cuSOLVER launches a "
+                 "system",
+        max_abs_err=random_row["conditioned_max_abs_diff"], ms=main["device_ms"],
+        device_ms=main["device_ms"], graph_ms=main["graph_ms"], call_ms=main["call_ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes", library_ms=None,
+        per="glob20_ring F-filter stage: one launch, 54 window pairs x 512 systems",
+        **{f"{k}_path": dict(per=f"one launch, {v['systems']} systems",
+                             **{q: v[q] for q in ("device_ms", "call_ms", "bound_ms", "plain_ms")})
+           for k, v in rows.items() if k != "glob20_filter_stage"},
+    )
 
 
 def slice_phase(dev):
@@ -4421,6 +4728,7 @@ def main(argv) -> int:
                 "ptxas": {n: build_log(n) for n in SOURCES}})
 
         kernels = [harris_phase(dev, peaks), *match_phase(dev, peaks)]
+        nullvec = nullvec_phase(dev, peaks)
         # The ladder's kernel shapes here, with the other kernel cases: late
         # in a long process torch.profiler has dropped kernel activities.
         ladder_k = ladder_kernels(dev, peaks)
@@ -4436,7 +4744,7 @@ def main(argv) -> int:
             **{k: ladder_k["match"][k] for k in ("device_ms", "call_ms", "bound_ms", "plain_ms",
                                                  "library_ms", "max_abs_err")})
         if only_kernels:
-            _print({"kernels": kernels})
+            _print({"kernels": kernels + [nullvec]})
             print("chip_smoke: --only-kernels given: slice and engine phases skipped, "
                   "no result line", file=sys.stderr)
             return 0
@@ -4468,7 +4776,7 @@ def main(argv) -> int:
             k["launches_scenarios"] = {run: n.get(k["name"], 0) for run, n in scenarios.items()}
             k["launches_ladder"] = {run: n.get(k["name"], 0) for run, n in ladder.items()}
         print(smi, flush=True)
-        _print({"kernels": kernels})
+        _print({"kernels": kernels + [nullvec]})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,
                                        "count": torch.cuda.device_count()}})
         return 0

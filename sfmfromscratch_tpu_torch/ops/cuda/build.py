@@ -30,6 +30,7 @@ BUILD_DIR = os.path.join(_PKG, "_build")
 SOURCES = {
     "harris": "harris.cu",
     "match_top2": "match_top2.cu",
+    "nullvec_qr": "nullvec_qr.cu",
 }
 
 NVCC_FLAGS = [

@@ -15,17 +15,21 @@ from __future__ import annotations
 
 import torch
 
+from sfmfromscratch_tpu_torch.ops.cuda.nullvec_kernel import nullvec_8x9, nullvec_qr_plain
+
 
 def nullvec_lstsq(A: torch.Tensor) -> torch.Tensor:
     """Unit vector x minimizing ||A x|| for (..., m, n) A: the last
-    right-singular vector of A (reference SFM.py:222-227, :249)."""
+    right-singular vector of A (reference SFM.py:222-227, :249). The 8x9
+    minimal systems of the 8-point solves go to ``nullvec_8x9``: one kernel
+    launch for all of them on the card."""
     m, n = A.shape[-2], A.shape[-1]
     if m < n:
         # Rank-m minimal systems have an exact 1-D null space, spanned by the
         # last column of the complete Q of A^T.
-        Q, _ = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
-        v = Q[..., :, -1]
-        return v / torch.linalg.norm(v, dim=-1, keepdim=True)
+        if (m, n) == (8, 9):
+            return nullvec_8x9(A)
+        return nullvec_qr_plain(A)
     if m > n:
         A = torch.linalg.qr(A, mode="r").R                 # (..., n, n)
     # A system with a non-finite entry gives NaN, as XLA's SVD does, where

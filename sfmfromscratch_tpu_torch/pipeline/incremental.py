@@ -75,6 +75,7 @@ from sfmfromscratch_tpu_torch.geometry.ransac import (  # noqa: F401  (ransac_fu
 from sfmfromscratch_tpu_torch.geometry.triangulation import refine_points_gn, triangulate_dlt
 from sfmfromscratch_tpu_torch.io import export
 from sfmfromscratch_tpu_torch.io.images import load_image, load_image_u8
+from sfmfromscratch_tpu_torch.ops.cuda import nullvec_kernel
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
 from sfmfromscratch_tpu_torch.ops.matcher import match_pairs_batch, match_ratio_test  # noqa: F401
 from sfmfromscratch_tpu_torch.parallel.mesh import all_gather_cat, is_writer, mesh_axis
@@ -563,9 +564,11 @@ class SfmEngine:
         fixed-count F-RANSAC of ``num_iterations()``. Records the hypotheses
         each pair used in ``filter_hyps_used`` and their sum as the counter
         ``hyps`` of the span ``filter.ransac``, which ends at the adaptive
-        filter's fetch of those counts."""
+        filter's fetch of those counts; its counter ``nullvec_launches`` is
+        the null-vector kernel's launches inside it (its host-side count)."""
         rcfg = self.config.ransac
         span = self._timer.open("filter.ransac")
+        launches0 = nullvec_kernel.launches
         if rcfg.adaptive:
             fres = ransac_fundamental_adaptive_batch(
                 self._generator, p1, p2, mask, max_hypotheses=rcfg.max_hypotheses(),
@@ -579,6 +582,7 @@ class SfmEngine:
                                             threshold=rcfg.epipolar_threshold)
             self.filter_hyps_used = np.full(p1.shape[0], self._num_hyp)
         span.counters["hyps"] = int(self.filter_hyps_used.sum())
+        span.counters["nullvec_launches"] = nullvec_kernel.launches - launches0
         self._timer.close(span, time_as=None)
         return fres.inliers
 

@@ -23,6 +23,8 @@ import torch
 from sfmfromscratch_tpu_torch.ops.cuda import build
 from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
 from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+from sfmfromscratch_tpu_torch.ops.cuda import nullvec_kernel as NK
+from sfmfromscratch_tpu_torch.ops.smallsvd import nullvec_lstsq
 from sfmfromscratch_tpu_torch.utils.device import resolve_device
 from sfmfromscratch_tpu_torch.utils.precision import f32_precision, mm_f32
 
@@ -675,9 +677,10 @@ def test_engine_images_of_two_sizes_raise(tmp_path):
     assert set(eng._kp_tracks) == {1, 2, 3}
 
 
-def test_wrappers_dispatch_by_device():
+def test_wrappers_dispatch_by_device(monkeypatch):
     """CPU tensors take the plain version; a tensor that is on neither the
-    CPU nor a CUDA card is refused, as is input the kernel does not take."""
+    CPU nor a CUDA card is refused, as is input the kernel does not take.
+    The null-vector kernel solves every system of a call in one launch."""
     img = torch.rand(2, 20, 24)
     assert torch.equal(HK.harris_response_fused(img, 7, 6.0, 0.05),
                        HK.harris_response(img, 7, 6.0, 0.05))
@@ -699,6 +702,81 @@ def test_wrappers_dispatch_by_device():
     with pytest.raises(ValueError):
         MK._launch(torch.zeros(1, 3, 8), torch.zeros(1, 4, 7), torch.zeros(1, 4))
 
+    # 8x9 systems on the CPU: torch.linalg.qr, no launch.
+    A = torch.randn(3, 5, 8, 9, generator=torch.Generator().manual_seed(0))
+    before = (NK.launches, NK.systems)
+    Q, _ = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
+    assert torch.equal(nullvec_lstsq(A), Q[..., :, -1] / torch.linalg.norm(Q[..., :, -1], dim=-1,
+                                                                           keepdim=True))
+    assert torch.equal(NK.nullvec_8x9(A), nullvec_lstsq(A))
+    assert (NK.launches, NK.systems) == before
+    with pytest.raises(ValueError):
+        NK.nullvec_8x9(torch.empty(4, 8, 9, device="meta"))
+    with pytest.raises(ValueError):
+        nullvec_lstsq(torch.empty(4, 8, 9, device="meta"))
+    for bad in (torch.zeros(4, 8, 9, dtype=torch.float64), torch.zeros(4, 7, 9),
+                torch.zeros(4, 9, 8), torch.zeros(9)):
+        with pytest.raises(ValueError):
+            NK._launch(bad)
+
+    # The launch, faked: one (A, S, 8, 9) call is one launch of A * S systems.
+    calls = []
+
+    def fake_kernel(a_ptr, out_ptr, count, stream):
+        calls.append(count)
+        return 0
+
+    monkeypatch.setattr(NK, "_kernel", lambda: fake_kernel)
+    monkeypatch.setattr(NK, "_call", lambda fn, args, dev: fn(*args, 0))
+    out = NK._launch(A.transpose(0, 1))          # non-contiguous: copied, then launched
+    assert calls == [15] and tuple(out.shape) == (5, 3, 9)
+    assert (NK.launches, NK.systems) == (before[0] + 1, before[1] + 15)
+    assert NK._launch(torch.zeros(0, 4, 8, 9)).shape == (0, 4, 9) and calls == [15]
+    monkeypatch.setattr(NK, "_kernel", lambda: lambda *a: 1)
+    with pytest.raises(RuntimeError, match="CUDA error 1"):
+        NK._launch(A)
+    assert NK.launches == before[0] + 1
+
+    # Under torch.func.vmap (the fixed-count relative poses) the operator
+    # makes one launch over the vmapped dimension and the rest.
+    seen = []
+
+    def recording(X):
+        seen.append(tuple(X.shape))
+        return NK.nullvec_qr_plain(X)
+
+    monkeypatch.setattr(NK, "_launch", recording)
+    got = torch.func.vmap(NK._nullvec_op, in_dims=1)(A)
+    assert seen == [(5, 3, 8, 9)]
+    assert torch.equal(got, NK.nullvec_qr_plain(A.transpose(0, 1)))
+    assert torch.equal(NK._nullvec_op(A), NK.nullvec_qr_plain(A)) and seen[-1] == (3, 5, 8, 9)
+
+
+@pytest.mark.parametrize("m, n, to_wrapper", [(8, 9, True), (7, 9, False), (9, 9, False),
+                                               (12, 9, False)])
+def test_nullvec_lstsq_takes_the_wrapper_at_8x9_only(m, n, to_wrapper, monkeypatch):
+    """``nullvec_lstsq`` hands (..., 8, 9) systems, and only those, to the
+    null-vector wrapper, whatever the leading dimensions; other shapes keep
+    their QR or SVD path."""
+    from sfmfromscratch_tpu_torch.ops import smallsvd
+
+    seen = []
+
+    def recording(A):
+        seen.append(tuple(A.shape))
+        return NK.nullvec_qr_plain(A)
+
+    monkeypatch.setattr(smallsvd, "nullvec_8x9", recording)
+    A = torch.randn(2, 3, m, n, generator=torch.Generator().manual_seed(m * n))
+    v = nullvec_lstsq(A)
+    assert tuple(v.shape) == (2, 3, n)
+    assert seen == ([(2, 3, 8, 9)] if to_wrapper else [])
+    # ||A v|| is the least singular value (0 for the minimal systems).
+    smin = torch.linalg.svdvals(A)[..., -1] if m >= n else torch.zeros(2, 3)
+    norm = torch.linalg.norm(A, dim=(-2, -1))
+    assert torch.all(torch.linalg.norm(A @ v[..., None], dim=(-2, -1))
+                     <= smin * (1 + 1e-4) + 1e-5 * norm)
+
 
 def _fake_nvcc(tmp_path, ok: bool) -> str:
     """A stand-in compiler: writes its ``-o`` output (or fails) and logs
@@ -715,7 +793,8 @@ def _fake_nvcc(tmp_path, ok: bool) -> str:
 
 def test_build_raises_when_nvcc_fails(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
-    monkeypatch.setattr(build, "nvcc_path", lambda: _fake_nvcc(tmp_path, ok=False))
+    nvcc = _fake_nvcc(tmp_path, ok=False)   # written once: the builds run it at once
+    monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
     with pytest.raises(RuntimeError, match="nvcc failed"):
         build.build_all()
     assert not any(p.suffix == ".so" for p in (tmp_path / "_build").iterdir())
@@ -728,20 +807,22 @@ def test_build_is_keyed_by_source(tmp_path, monkeypatch):
     shutil.copytree(build.CSRC, csrc)
     monkeypatch.setattr(build, "CSRC", str(csrc))
     monkeypatch.setattr(build, "BUILD_DIR", str(tmp_path / "_build"))
-    monkeypatch.setattr(build, "nvcc_path", lambda: _fake_nvcc(tmp_path, ok=True))
+    nvcc = _fake_nvcc(tmp_path, ok=True)   # written once: the builds run it at once
+    monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
     build.build_all()
     calls = (tmp_path / "calls.log").read_text().splitlines()
-    assert len(calls) == len(build.SOURCES) == 2
+    assert len(calls) == len(build.SOURCES) == 3
     assert all("arch=compute_90a,code=sm_90a" in c and "-shared" in c for c in calls)
     paths = {n: build.library_path(n) for n in build.SOURCES}
     assert all(os.path.exists(p) for p in paths.values())
     build.build_all()
-    assert len((tmp_path / "calls.log").read_text().splitlines()) == 2
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 3
     (csrc / "harris.cu").write_text((csrc / "harris.cu").read_text() + "\n// changed\n")
     assert build.library_path("harris") != paths["harris"]
     assert build.library_path("match_top2") == paths["match_top2"]
+    assert build.library_path("nullvec_qr") == paths["nullvec_qr"]
     build.build_all()
-    assert len((tmp_path / "calls.log").read_text().splitlines()) == 3
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 4
 
 
 def test_build_keeps_nvcc_report(tmp_path, monkeypatch):

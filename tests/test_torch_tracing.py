@@ -119,11 +119,13 @@ def test_spans_nest_and_sum_to_stage_times(kind, engines):
 @pytest.mark.parametrize("kind", ["fused", "staged", "global"])
 def test_span_counters(kind, engines):
     """``filter.ransac``'s ``hyps`` sum to ``filter_hyps_used`` (every
-    ``_filter`` call counted once); the last ``ba`` span's ``lm_iters`` are
-    the last BA's ``iterations_used``."""
+    ``_filter`` call counted once), and its ``nullvec_launches`` are 0 on
+    the CPU (the plain QR launches no kernel); the last ``ba`` span's
+    ``lm_iters`` are the last BA's ``iterations_used``."""
     eng = engines[kind]
     hyps = [s.counters["hyps"] for s in eng.spans if s.name == "filter.ransac"]
     assert len(hyps) == 1 and hyps[0] == int(eng.filter_hyps_used.sum()) > 0
+    assert [s.counters["nullvec_launches"] for s in eng.spans if s.name == "filter.ransac"] == [0]
     ba = [s for s in eng.spans if s.name == "ba"]
     assert ba and ba[-1].counters["lm_iters"] == eng.ba_result.iterations_used > 0
 
@@ -240,6 +242,13 @@ def test_profile_engine_span_arithmetic():
     assert profile_engine.per_count(runs, "ba", "lm_iters", 1e3) == pytest.approx(1.0)
     assert profile_engine.per_count(runs, "filter.ransac", "hyps", 1e6) == pytest.approx(0.5)
     assert profile_engine.per_count(runs, "chain", "x", 1.0) is None
+    runs[1].append(_span("filter.ransac", 0, 1000, hyps=2, nullvec_launches=3))
+    assert profile_engine.counter_ratio(runs, "filter.ransac", "nullvec_launches", "hyps") == \
+        pytest.approx(3 / 8)
+    assert profile_engine.counter_ratio(runs, "ba", "nullvec_launches", "hyps") is None
+    assert profile_engine.span_readings(traced, plain, pieces, runs, views=4)[
+        "filter_nullvec_launches_per_hyp"] == pytest.approx(3 / 8)
+    runs[1].pop()
     got = profile_engine.span_readings(traced, plain, pieces, runs, views=4)
     assert got["decode_ms_per_view"] == pytest.approx(0.25)
     assert got["chain_idle_share"] is None and got["ba_ms_per_lm_iter"] == pytest.approx(1.0)

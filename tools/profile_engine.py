@@ -5,7 +5,8 @@ Builds the port's kernels, warms the engine at the bench configuration
 
 1. times ``--runs`` warm runs with a host clock (the engine ends in host
    fetches) and keeps each run's ``stage_times`` (each stage ends at a
-   device synchronize);
+   device synchronize) and the null-vector kernel's launches and systems
+   (its wrapper's counters);
 2. traces the first timed run's scene and seed once more with
    ``torch.profiler`` (CUDA activity): the kernels with the most device
    time, the device's busy time (the union of its kernel and copy
@@ -35,8 +36,11 @@ the same scene and seed unprofiled), matched by name and order, for
 ``filter``, ``chain`` (``bootstrap`` and ``chain``) and ``ba``;
 ``ba_ms_per_lm_iter`` (the ``ba`` spans over their ``lm_iters``),
 ``filter_ransac_us_per_hyp`` (the ``filter.ransac`` spans over their
-``hyps``) and ``decode_ms_per_view`` (the ``decode`` spans over the views),
-each over the timed runs. Prints one JSON line per part as it is measured
+``hyps``), ``filter_nullvec_launches_per_hyp`` (their counter
+``nullvec_launches`` over their ``hyps``: the null-vector kernel's
+launches a hypothesis; 0 where no span counts them) and
+``decode_ms_per_view`` (the ``decode`` spans over the views), each over
+the timed runs. Prints one JSON line per part as it is measured
 and, with ``--out``, appends it to that file (JSON lines).
 
     python3 tools/profile_engine.py [--engine host|global|scale|ladder] [--rung L4] [--runs 3]
@@ -111,6 +115,14 @@ def per_count(runs, name, counter, scale):
     return scale * 1e-9 * sum(s.end_ns - s.start_ns for s in spans) / n if n else None
 
 
+def counter_ratio(runs, name, num, den):
+    """The sum of counter ``num`` over the sum of counter ``den`` on the
+    spans ``name`` of ``runs``; None where the latter is 0."""
+    spans = [s for spans in runs for s in _closed(spans, (name,))]
+    d = sum(s.counters.get(den, 0) for s in spans)
+    return sum(s.counters.get(num, 0) for s in spans) / d if d else None
+
+
 def span_readings(traced, plain, pieces, runs, views):
     """The span readings of a traced run's spans ``traced`` against the
     first timed run's ``plain``, the device's union ``pieces`` (ns on the
@@ -119,6 +131,8 @@ def span_readings(traced, plain, pieces, runs, views):
     out = {k: stage_idle_share(traced, plain, pieces, v) for k, v in IDLE_STAGES.items()}
     out["ba_ms_per_lm_iter"] = per_count(runs, "ba", "lm_iters", 1e3)
     out["filter_ransac_us_per_hyp"] = per_count(runs, "filter.ransac", "hyps", 1e6)
+    out["filter_nullvec_launches_per_hyp"] = counter_ratio(runs, "filter.ransac",
+                                                           "nullvec_launches", "hyps")
     decode = [s for spans in runs for s in _closed(spans, ("decode",))]
     out["decode_ms_per_view"] = (1e-6 * sum(s.end_ns - s.start_ns for s in decode) / views
                                  if decode else None)
@@ -178,6 +192,7 @@ def main() -> int:
         print("profile_engine: no CUDA device available", file=sys.stderr)
         return 2
     from sfmfromscratch_tpu_torch.native.build import build_all as native_build_all
+    from sfmfromscratch_tpu_torch.ops.cuda import nullvec_kernel
     from sfmfromscratch_tpu_torch.ops.cuda.build import build_all
     from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
@@ -242,18 +257,21 @@ def main() -> int:
               "workload": args.workload, "seed": args.seed if args.workload else None})
         job(-1)
         torch.cuda.synchronize()
-        walls, stages, runs, views = [], [], [], 0
+        walls, stages, runs, views, nullvec = [], [], [], 0, []
         for i in range(args.runs):
+            n0, s0 = nullvec_kernel.launches, nullvec_kernel.systems
             t0 = time.perf_counter()
             n_views, eng = job(i)
             torch.cuda.synchronize()
             walls.append(time.perf_counter() - t0)
             stages.append(dict(eng.stage_times))
             runs.append(list(getattr(eng, "spans", None) or []))
+            nullvec.append([nullvec_kernel.launches - n0, nullvec_kernel.systems - s0])
             views += n_views
         median = sorted(walls)[len(walls) // 2]
         emit({"part": "engine_warm_s", "runs": walls, "median": median,
-              "frames_per_s_median": views / len(walls) / median})
+              "frames_per_s_median": views / len(walls) / median,
+              "nullvec_launches_systems": nullvec})
         emit({"part": "stage_times_s", "runs": stages,
               "filter_hyps_used_last_run": (None if eng.filter_hyps_used is None
                                             else [int(h) for h in eng.filter_hyps_used])})
