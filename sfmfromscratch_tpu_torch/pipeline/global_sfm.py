@@ -229,6 +229,7 @@ class GlobalSfmEngine(SfmEngine):
             kfs.append(C)
         self._auto_kfs = kfs
         self.warnings.append(f"auto keyframes: {len(kfs)}/{C} at flow target {tau:.1f} px")
+        span.counters.update(frames=C - 1, keyframes=len(kfs))
         self._stage_end(span)
 
     def _prepare_pair_selection(self, feats: Features) -> None:
@@ -1035,8 +1036,9 @@ class GlobalSfmEngine(SfmEngine):
             for k in (below, above):
                 if k is not None:
                     reg_pairs.append((k, f))
-        self._register_frames(feats.keypoints.capacity, non_kf,
-                              self._registration_matches(feats, reg_pairs))
+        counts = self._register_frames(feats.keypoints.capacity, non_kf,
+                                       self._registration_matches(feats, reg_pairs))
+        span.counters.update(frames=len(non_kf), pairs=len(reg_pairs), **counts)
         self._stage_end(span)
 
     def _registration_matches(self, feats: Features, reg_pairs) -> Dict[tuple, tuple]:
@@ -1044,6 +1046,7 @@ class GlobalSfmEngine(SfmEngine):
         one batch; ``{pair: (indices (M, 2), filtered mask (M,), frame
         pixels (M, 2))}`` on the host."""
         rcfg = self.config.ransac
+        child = self._timer.open("register.match")
         res, p1, p2 = self._match_pair_list(feats, reg_pairs)
         fres = ransac_fundamental_adaptive_batch(
             self._generator, p1, p2, res.mask, max_hypotheses=rcfg.max_hypotheses(),
@@ -1051,16 +1054,16 @@ class GlobalSfmEngine(SfmEngine):
             confidence=rcfg.prob_success,
         )
         idx_np, filt_np, p2_np = (v.cpu().numpy() for v in (res.indices, fres.inliers, p2))
+        self._timer.close(child, time_as=None)   # the host copy waited for the device
         return {k: (idx_np[r], filt_np[r], p2_np[r]) for r, k in enumerate(reg_pairs)}
 
-    def _register_frames(self, capacity: int, non_kf, results: Dict[tuple, tuple],
-                         uniforms: Optional[torch.Tensor] = None) -> None:
-        """Poses of the frames ``non_kf`` from their registration matches
-        ``results``: 2D-3D pairs through the keyframes' gated tracks, deduped
-        per frame (first occurrence), then P3P RANSAC at min(512, the PnP
-        hypotheses) vmapped over the frames. ``uniforms`` (F, hypotheses, 3)
-        replaces the draw from the engine's generator. A frame whose
-        registration fails keeps its nearest keyframe's pose."""
+    def _link_registration(self, capacity: int, non_kf, results: Dict[tuple, tuple]):
+        """2D-3D correspondences of the frames ``non_kf`` from their
+        registration matches ``results``: each pair's filtered inliers whose
+        keyframe keypoint has a surviving track, laid out frame by frame in
+        the order of its pairs and their rows, a track seen twice in a frame
+        kept at its first occurrence. Returns (X, x, track ids, mask, K),
+        each (F, 2M, ...) on the host."""
         kfs = self.keyframes
         # slot -> compacted track id per keyframe (-1: no surviving track)
         slot_track = {k: np.full(capacity, -1, np.int64) for k in kfs}
@@ -1102,7 +1105,25 @@ class GlobalSfmEngine(SfmEngine):
             keep = np.zeros(M2, bool)
             keep[first] = True
             m_all[fi] &= keep
+        return X_all, x_all, t_all, m_all, K_all
 
+    def _register_frames(self, capacity: int, non_kf, results: Dict[tuple, tuple],
+                         uniforms: Optional[torch.Tensor] = None) -> Dict[str, int]:
+        """Poses of the frames ``non_kf`` from their registration matches
+        ``results``: the 2D-3D pairs of ``_link_registration``, then P3P
+        RANSAC at min(512, the PnP hypotheses) vmapped over the frames.
+        ``uniforms`` (F, hypotheses, 3) replaces the draw from the engine's
+        generator. A frame whose registration fails keeps its nearest
+        keyframe's pose. Returns the counts of the ``register`` span: the
+        correspondences (``links``), the P3P samples (``pnp_hyps``) and the
+        frames that kept a keyframe's pose (``failed``)."""
+        kfs = self.keyframes
+        child = self._timer.open("register.link")
+        X_all, x_all, t_all, m_all, K_all = self._link_registration(capacity, non_kf, results)
+        self._timer.close(child, time_as=None)
+        F = len(non_kf)
+
+        child = self._timer.open("register.pnp")
         reg_hyp = min(512, self._pnp_hyp)
         if uniforms is None:
             uniforms = torch.rand((F, reg_hyp, 3), generator=self._generator, device=self.device)
@@ -1121,6 +1142,8 @@ class GlobalSfmEngine(SfmEngine):
                 self._dev(m_all[sl], torch.bool), uniforms[sl].to(self.device)))
         rv_np, t_np, inl_np, ok_np = (torch.cat([p[i] for p in parts]).cpu().numpy()
                                       for i in range(4))
+        self._timer.close(child, time_as=None)   # the host copy waited for the device
+        failed = 0
         for fi, f in enumerate(non_kf):
             cam = f - 1
             if bool(ok_np[fi]) and m_all[fi].sum() >= 6:
@@ -1133,7 +1156,9 @@ class GlobalSfmEngine(SfmEngine):
                 near = min(kfs, key=lambda k: abs(k - f))
                 rvec, tv = self.global_poses[near - 1]
                 self.warnings.append(f"frame {f}: PnP registration failed, keyframe pose kept")
+                failed += 1
             self.global_poses[cam] = (np.asarray(rvec), np.asarray(tv))
+        return dict(links=int(m_all.sum()), pnp_hyps=F * reg_hyp, failed=failed)
 
     def _stream_ba(self) -> None:
         """The final BA through the advancing-window block store

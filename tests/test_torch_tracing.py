@@ -257,3 +257,38 @@ def test_profile_engine_span_arithmetic():
     assert stages["filter"] == pytest.approx((70e-9, 30e-9))
     assert inside == pytest.approx((20 + 10 + 10) / 45)   # [40, 45] lies in no stage
     assert profile_engine.stage_busy([], ([], [])) == ({}, None)
+
+
+def test_profile_engine_registration_readings():
+    """The keyframed engine's readings of ``tools/profile_engine.py`` on
+    hand-made spans (ns): ``register.pnp`` and ``register.link`` over the
+    ``register`` spans' ``frames``, the ``failed`` frames a run over the runs
+    that registered, and the ``keyframes`` and ``register`` idle shares."""
+    pieces = profile_engine.union_pieces([(0, 10), (30, 60)])
+    runs = [[_span("run", 0, 9_000_000, parent=None),
+             _span("keyframes", 0, 1_000_000, frames=149, keyframes=10),
+             _span("register", 1_000_000, 8_000_000, frames=140, pairs=280, failed=1),
+             _span("register.link", 1_000_000, 1_700_000, parent=2),
+             _span("register.pnp", 2_000_000, 6_200_000, parent=2)],
+            [_span("run", 0, 5_000_000, parent=None),
+             _span("register", 0, 4_000_000, frames=60, failed=2),
+             _span("register.link", 0, 100_000, parent=1),
+             _span("register.pnp", 0, 1_400_000, parent=1)],
+            [_span("run", 0, 100, parent=None)]]
+    assert profile_engine.per_count(runs, "register.pnp", "frames", 1e6, of="register") == \
+        pytest.approx(1e6 * 5.6e-3 / 200)
+    assert profile_engine.per_count(runs, "register.link", "frames", 1e3, of="register") == \
+        pytest.approx(1e3 * 0.8e-3 / 200)
+    assert profile_engine.per_count(runs, "register.pnp", "x", 1.0, of="keyframes") is None
+    assert profile_engine.per_run(runs, "register", "failed") == pytest.approx(1.5)
+    assert profile_engine.per_run(runs[2:], "register", "failed") is None
+    traced = [_span("run", 0, 100, parent=None), _span("keyframes", 0, 20),
+              _span("register", 20, 80)]
+    plain = [_span("run", 0, 90, parent=None), _span("keyframes", 0, 40),
+             _span("register", 40, 90)]
+    got = profile_engine.span_readings(traced, plain, pieces, runs, views=300)
+    assert got["keyframes_idle_share"] == pytest.approx(100 * (1 - 10 / 40))
+    assert got["register_idle_share"] == pytest.approx(100 * (1 - 30 / 50))
+    assert got["register_pnp_us_per_frame"] == pytest.approx(28.0)
+    assert got["register_link_ms_per_frame"] == pytest.approx(0.004)
+    assert got["register_failed_per_job"] == pytest.approx(1.5)

@@ -33,15 +33,21 @@ Span readings (``span_readings``; None where the engine records no spans):
 ``<stage>_idle_share``, 100 (1 - device busy time inside the traced run's
 spans of the stage / the length of the same spans in the first timed run,
 the same scene and seed unprofiled), matched by name and order, for
-``filter``, ``chain`` (``bootstrap`` and ``chain``) and ``ba``;
+``filter``, ``chain`` (``bootstrap`` and ``chain``), ``ba``, ``keyframes``
+and ``register``;
 ``ba_ms_per_lm_iter`` (the ``ba`` spans over their ``lm_iters``),
 ``filter_ransac_us_per_hyp`` (the ``filter.ransac`` spans over their
 ``hyps``), ``filter_nullvec_launches_per_hyp`` (their counter
 ``nullvec_launches`` over their ``hyps``: the null-vector kernel's
-launches a hypothesis; 0 where no span counts them) and
-``decode_ms_per_view`` (the ``decode`` spans over the views), each over
-the timed runs. Prints one JSON line per part as it is measured
-and, with ``--out``, appends it to that file (JSON lines).
+launches a hypothesis; 0 where no span counts them),
+``decode_ms_per_view`` (the ``decode`` spans over the views); for the
+keyframed global engine ``register_pnp_us_per_frame`` and
+``register_link_ms_per_frame`` (the ``register.pnp`` and ``register.link``
+spans over the ``register`` spans' ``frames``) and
+``register_failed_per_job`` (the ``register`` spans' ``failed``, frames
+that kept a keyframe's pose, a run), each over the timed runs. Prints one
+JSON line per part as it is measured and, with ``--out``, appends it to
+that file (JSON lines).
 
     python3 tools/profile_engine.py [--engine host|global|scale|ladder] [--rung L4] [--runs 3]
         [--workload inc10_bench --seed 3200000021] [--out profile_engine.json]
@@ -65,7 +71,8 @@ import chip_smoke  # noqa: E402  (the bench sequence and configuration)
 
 # The stages each span reading reads.
 IDLE_STAGES = {"filter_idle_share": ("filter",), "chain_idle_share": ("bootstrap", "chain"),
-               "ba_idle_share": ("ba",)}
+               "ba_idle_share": ("ba",), "keyframes_idle_share": ("keyframes",),
+               "register_idle_share": ("register",)}
 
 
 def union_pieces(intervals):
@@ -107,12 +114,13 @@ def stage_idle_share(traced, plain, pieces, names):
     return 100.0 * (1.0 - sum(busy_inside(pieces, s.start_ns, s.end_ns) for s in a) / length)
 
 
-def per_count(runs, name, counter, scale):
-    """The spans ``name`` of ``runs`` (lists of spans) over the sum of their
-    counter ``counter``, times ``scale`` per second; None where it is 0."""
-    spans = [s for spans in runs for s in _closed(spans, (name,))]
-    n = sum(s.counters.get(counter, 0) for s in spans)
-    return scale * 1e-9 * sum(s.end_ns - s.start_ns for s in spans) / n if n else None
+def per_count(runs, name, counter, scale, of=None):
+    """The spans ``name`` of ``runs`` (lists of spans) over the sum of
+    counter ``counter`` of the spans ``of`` (default: the same spans), times
+    ``scale`` per second; None where that sum is 0."""
+    n = sum(s.counters.get(counter, 0) for spans in runs for s in _closed(spans, (of or name,)))
+    sec = 1e-9 * sum(s.end_ns - s.start_ns for spans in runs for s in _closed(spans, (name,)))
+    return scale * sec / n if n else None
 
 
 def counter_ratio(runs, name, num, den):
@@ -121,6 +129,15 @@ def counter_ratio(runs, name, num, den):
     spans = [s for spans in runs for s in _closed(spans, (name,))]
     d = sum(s.counters.get(den, 0) for s in spans)
     return sum(s.counters.get(num, 0) for s in spans) / d if d else None
+
+
+def per_run(runs, name, counter):
+    """Counter ``counter`` of the spans ``name`` summed over the runs that
+    have such a span, over those runs; None where none has."""
+    having = [_closed(spans, (name,)) for spans in runs]
+    having = [ss for ss in having if ss]
+    return (sum(s.counters.get(counter, 0) for ss in having for s in ss) / len(having)
+            if having else None)
 
 
 def span_readings(traced, plain, pieces, runs, views):
@@ -133,6 +150,10 @@ def span_readings(traced, plain, pieces, runs, views):
     out["filter_ransac_us_per_hyp"] = per_count(runs, "filter.ransac", "hyps", 1e6)
     out["filter_nullvec_launches_per_hyp"] = counter_ratio(runs, "filter.ransac",
                                                            "nullvec_launches", "hyps")
+    out["register_pnp_us_per_frame"] = per_count(runs, "register.pnp", "frames", 1e6, of="register")
+    out["register_link_ms_per_frame"] = per_count(runs, "register.link", "frames", 1e3,
+                                                  of="register")
+    out["register_failed_per_job"] = per_run(runs, "register", "failed")
     decode = [s for spans in runs for s in _closed(spans, ("decode",))]
     out["decode_ms_per_view"] = (1e-6 * sum(s.end_ns - s.start_ns for s in decode) / views
                                  if decode else None)
