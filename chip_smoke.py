@@ -26,8 +26,12 @@ Phases, each printing JSON lines:
              million random systems, rank-7 and duplicate-row systems, the
              adaptive RANSACs' own minimal samples, non-finite systems, one
              launch a call, results independent of the batch's shape, and its
-             times at the engines' stage shapes. ``--only-kernels`` stops
-             after this phase and prints no result line.
+             times at the engines' stage shapes. Then the segment-sum kernel
+             against ``index_put_(accumulate=True)`` at every cell's BA
+             shapes, padding run included: within its stated tolerance, the
+             same bits on every call, one launch a call, its times beside
+             its bound and ``index_put_``'s. ``--only-kernels`` stops after
+             this phase and prints no result line.
 3. slice   — ``reconstruct_two_view`` on views 1 and 2 of the bench scene at
              the bench settings, through both kernels (their launch counts are
              zeroed just before the timed run and read just after); the pose is
@@ -36,7 +40,9 @@ Phases, each printing JSON lines:
              to the port's CPU run on the same uniforms.
 4. engine  — ``SfmEngine`` on ``bench.py``'s 10-view sequence at its
              configuration, once cold and once warm; the launch counts are
-             zeroed before the warm run and read after it. The result is held
+             zeroed before the warm run and read after it, and every BA
+             segment sum must have been one launch of the segment-sum kernel
+             over its solve's plans. The result is held
              to pins beside the JAX engine's CPU spread
              (``tools/engine_pins.py``), the card's final BA problem is
              solved again on the CPU, and the cold and warm runs must end
@@ -145,6 +151,7 @@ beside this file, it exits non-zero at once.
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import os
@@ -280,6 +287,39 @@ NULLVEC_NORM = 1e-6             # | ||v|| - 1 |
 NULLVEC_SHAPES = {"glob20_filter_stage": (54, 512), "inc10_filter_stage": (9, 512),
                   "glob20_relpose_stage": (54, 128), "million": (1 << 20,)}
 NULLVEC_PAIRS = 16
+
+# The segment-sum kernel (csrc/segment_sum.cu) against the sorted
+# index_put_(accumulate=True) that BA used before it, at each cell's BA
+# shapes: the plans of a problem built as the engines build theirs, with the
+# counts of one job of each cell on the card (cameras, points and
+# observations, real and padded; the mean track length; an H100 run), each
+# point seen by a run of consecutive cameras of geometric length, the
+# observations by camera, then point, and pad_problem's run of zeros on
+# segment 0. Rows are float32 normals, padding included, and at
+# kf150_video's shapes also float64 ones (the mesh phase's float64 BA runs
+# on the kernel too). Both sums are in the rows' type, in another order:
+# each is within (n - 1) u sum |x| of the exact sum of its n rows (u = 2^-24
+# in float32, 2^-53 in float64), so the two are held to SEGSUM_TOL n u
+# sum |x| segment by segment (an empty segment to 0 exactly). Two calls
+# must give the same bits, and at kf150_video's shapes a float32 call's
+# device time must stay under SEGSUM_MAX_MS.
+SEGSUM_CELLS = {
+    "kf150_video": dict(cams=150, cams_pad=152, points=1342, points_pad=2048, track=22.2,
+                        obs_pad=32768, dense=False),
+    "inc10_bench": dict(cams=9, cams_pad=16, points=3249, points_pad=4096, track=1.43,
+                        obs_pad=8192, dense=True),
+    "inc2_pairs": dict(cams=1, cams_pad=8, points=567, points_pad=1024, track=1.0,
+                       obs_pad=4096, dense=True),
+    "glob20_ring": dict(cams=20, cams_pad=24, points=4856, points_pad=5120, track=3.0,
+                        obs_pad=16384, dense=True),
+}
+# The segment sums of one LM iteration, by plan and row width: the normal
+# blocks (U 36, V 9, gc 6, gp 3), the Schur right side and matvec (6 over
+# cameras, 3 over points; the matvec twice a PCG step), the dense path's
+# per-(point, camera) blocks (18).
+SEGSUM_SUMS = (("cam", 36), ("cam", 6), ("pt", 9), ("pt", 3), ("point_cam", 18))
+SEGSUM_TOL = 2.0
+SEGSUM_MAX_MS = 0.010
 
 # The slice on the card against the port's own CPU run on the same images.
 # Response maps agree to ~1e-6 of their range, so keypoint sets agree all but
@@ -1743,6 +1783,115 @@ def nullvec_phase(dev, peaks):
     )
 
 
+def segsum_indices(cell: dict, seed: int = 0):
+    """(obs_cam, obs_pt) of a padded BA problem with ``cell``'s counts
+    (``SEGSUM_CELLS``), as numpy int64 arrays."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    cams, points = cell["cams"], cell["points"]
+    length = np.minimum(rng.geometric(1.0 / cell["track"], points), cams)
+    start = rng.integers(0, cams - length + 1)
+    pt = np.repeat(np.arange(points), length)
+    cam = np.concatenate([np.arange(s, s + n) for s, n in zip(start, length)])
+    order = np.lexsort((pt, cam))
+    pad = cell["obs_pad"] - pt.size
+    if pad < 0:
+        raise ValueError(f"{pt.size} observations for {cell['obs_pad']} padded")
+    return (np.concatenate([cam[order], np.zeros(pad, np.int64)]),
+            np.concatenate([pt[order], np.zeros(pad, np.int64)]))
+
+
+def _segsum_case(SK, schur, gen, dev, idx, S, F, peaks, dtype):
+    """The kernel against index_put_ on one plan, row width and type: the
+    worst segment's error over its tolerance, the largest error relative to
+    the segment's sum of absolute values, two calls bit for bit, launches a
+    call, and the times beside the bound, the plain version and index_put_."""
+    import torch
+
+    plan = schur.segment_plan(idx, S)
+    x = torch.randn((idx.shape[0], F), generator=gen, device=dev, dtype=dtype)
+    n0 = SK.launches
+    a, b = SK.segment_sum_planned(x, plan), SK.segment_sum_planned(x, plan)
+    launches = (SK.launches - n0) / 2
+
+    def index_put():
+        return torch.zeros((S, F), device=dev, dtype=dtype).index_put_((idx,), x, accumulate=True)
+
+    ref = index_put().double()
+    absum = torch.zeros((S, F), device=dev, dtype=torch.float64).index_add_(0, idx, x.double().abs())
+    n = torch.bincount(idx, minlength=S).double()[:, None]
+    err = (a.double() - ref).abs()
+    allowed = SEGSUM_TOL * n * (torch.finfo(dtype).eps / 2) * absum
+    row = dict(segments=S, rows=idx.shape[0], width=F, dtype=str(dtype), group=plan.group,
+               long_segments=plan.long_segs.numel(), launches_per_call=launches,
+               bit_equal=bool(torch.equal(a, b)),
+               worst_over_tol=float(torch.where(err > 0, err / allowed, 0.0).max()),
+               max_rel_err=float((err / absum.clamp_min(1e-300)).max()),
+               empty_exact=bool((a[n[:, 0] == 0] == 0).all()))
+    row.update(_kernel_times(lambda: SK.segment_sum_planned(x, plan), lambda: SK._launch(x, plan),
+                             ("segment_sum_kernel",)))
+    row["index_put_ms"] = _profiled_ms(index_put, ("",))[0]   # every kernel of the call
+    row["index_put_call_ms"] = _cuda_ms(index_put)
+    row["plain_ms"] = _cuda_ms(lambda: SK.segsum_plain(x, idx, S))
+    row["bound_ms"] = SK.segsum_bytes(idx.shape[0], F, S) / peaks["bytes_per_s"] * 1e3
+    return row
+
+
+def segsum_phase(dev, peaks):
+    """The segment-sum kernel against index_put_(accumulate=True) on the
+    card at every cell's BA shapes, padding run included: within
+    SEGSUM_TOL of it segment by segment, the same bits on every call, one
+    launch a call; its times beside its bound, the plain version
+    (``index_add_``, atomic on the card) and index_put_."""
+    import torch
+
+    from sfmfromscratch_tpu_torch.ba import schur
+    from sfmfromscratch_tpu_torch.ops.cuda import segsum_kernel as SK
+
+    gen = torch.Generator(device=dev).manual_seed(20)
+    rows, failed = {}, []
+    for cell, shape in SEGSUM_CELLS.items():
+        oc, op = (torch.from_numpy(a).to(dev) for a in segsum_indices(shape))
+        C, P = shape["cams_pad"], shape["points_pad"]
+        plans = {"cam": (oc, C), "pt": (op, P), "point_cam": (op * C + oc, P * C)}
+        dtypes = {torch.float32: "", torch.float64: ".f64"}
+        for (which, F), (dtype, tag) in itertools.product(SEGSUM_SUMS, dtypes.items()):
+            if (which == "point_cam" and not shape["dense"]) \
+                    or (dtype == torch.float64 and cell != "kf150_video"):
+                continue
+            idx, S = plans[which]
+            r = _segsum_case(SK, schur, gen, dev, idx, S, F, peaks, dtype)
+            rows[f"{cell}.{which}.{F}{tag}"] = r
+            if not (r["bit_equal"] and r["empty_exact"] and r["worst_over_tol"] <= 1.0
+                    and r["launches_per_call"] == 1):
+                failed.append(f"{cell} {which} F={F} {dtype}: {r}")
+            if cell == "kf150_video" and dtype == torch.float32 \
+                    and not (r["device_ms"] or 0.0) <= SEGSUM_MAX_MS:
+                failed.append(f"{cell} {which} F={F}: {r['device_ms']} ms a call")
+    _print({"phase": "segsum", "tol": SEGSUM_TOL, "max_ms_kf150": SEGSUM_MAX_MS,
+            "cases": rows})
+    _check(not failed, "; ".join(failed))
+    main = rows["kf150_video.pt.3"]
+    rows = {k: v for k, v in rows.items() if not k.endswith(".f64")}
+    return dict(
+        name="segment_sum_planned", route="cuda",
+        source="sfmfromscratch_tpu_torch/csrc/segment_sum.cu",
+        replaces="none: XLA's scatter in jax.ops.segment_sum; in the port "
+                 "index_put_(accumulate=True), a sort and a serial walk a call",
+        max_rel_err=max(r["max_rel_err"] for r in rows.values()), ms=main["device_ms"],
+        device_ms=main["device_ms"], graph_ms=main["graph_ms"], call_ms=main["call_ms"],
+        plain_ms=main["plain_ms"], bound_ms=main["bound_ms"], bound_by="bytes",
+        library_ms=main["index_put_ms"], library_call_ms=main["index_put_call_ms"],
+        per="kf150_video PCG step's point sum: one launch, 32,768 rows of 3 over 2,048 points",
+        **{f"{k}_path": dict(per=f"one launch, {v['rows']} rows of {v['width']} over "
+                                 f"{v['segments']} segments",
+                             **{q: v[q] for q in ("device_ms", "call_ms", "bound_ms", "plain_ms",
+                                                  "index_put_ms", "index_put_call_ms")})
+           for k, v in rows.items() if k != "kf150_video.pt.3"},
+    )
+
+
 def slice_phase(dev):
     """reconstruct_two_view at the bench settings; returns the launch counts
     of the timed run."""
@@ -1887,8 +2036,10 @@ def engine_phase(dev):
 
     from sfmfromscratch_tpu_torch.ba.lm import bundle_adjust
     from sfmfromscratch_tpu_torch.ba.problem import BAProblem
+    from sfmfromscratch_tpu_torch.ba.schur import dense_gate
     from sfmfromscratch_tpu_torch.ops.cuda import harris_kernel as HK
     from sfmfromscratch_tpu_torch.ops.cuda import match_kernel as MK
+    from sfmfromscratch_tpu_torch.ops.cuda import segsum_kernel as SK
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
 
     cfg = engine_config()
@@ -1903,12 +2054,22 @@ def engine_phase(dev):
         HK.launches = 0
         MK.launches = 0
         MK.launches_bf16 = 0
+        SK.launches = 0
         t0 = time.perf_counter()
         eng = SfmEngine(seq, n, config=cfg, single_K=K, device=dev)
         torch.cuda.synchronize()
         warm_s = time.perf_counter() - t0
         launches = {"harris_response_fused": HK.launches, "match_top2_fused": MK.launches}
         launches_bf16 = MK.launches_bf16
+        segsum_launches = SK.launches
+    # Every BA segment sum went through the kernel, one launch each, over the
+    # plans of its solve: 3 on the dense path, 2 on PCG.
+    ba_spans = [sp.counters for sp in eng.spans if "segsum_plans" in sp.counters]
+    want_plans = 3 if dense_gate(eng.ba_problem.num_cameras, eng.ba_problem.num_points) else 2
+    segsum = dict(kernel_launches=segsum_launches, ba_solves=len(ba_spans),
+                  plans=[c["segsum_plans"] for c in ba_spans],
+                  span_launches=sum(c.get("segsum_launches", 0) for c in ba_spans),
+                  lm_iters=sum(c.get("lm_iters", 0) for c in ba_spans))
 
     cams = len(eng.global_poses)
     ate, extent = trajectory_error(eng.global_poses, gt)
@@ -1934,7 +2095,8 @@ def engine_phase(dev):
 
     _print({"phase": "engine", "views": n, "cold_s": cold_s, "warm_s": warm_s,
             "warm_frames_per_s": n / warm_s, "stage_times_s": eng.stage_times,
-            "launches": launches, "launches_bf16_matcher": launches_bf16, "cameras": cams,
+            "launches": launches, "launches_bf16_matcher": launches_bf16,
+            "segsum": segsum, "cameras": cams,
             "ate": ate, "extent": extent,
             "ate_over_extent": ate / extent, "reproj_before_px": e0, "reproj_after_px": e1,
             "cold_reproj_after_px": cold_e1,
@@ -1951,6 +2113,10 @@ def engine_phase(dev):
                      "ba_prefix_rtol": BA_PREFIX_RTOL, "ba_final_rtol": BA_FINAL_RTOL}})
     _check(launches == ENGINE_LAUNCHES, f"engine launches {launches} != {ENGINE_LAUNCHES}")
     _check(launches_bf16 == 0, f"engine launched the bf16 matcher {launches_bf16} times")
+    _check(segsum["ba_solves"] >= 1 and all(p == want_plans for p in segsum["plans"])
+           and segsum["kernel_launches"] == segsum["span_launches"] > 0,
+           f"engine BA segment sums: {segsum}, want {want_plans} plans a solve and one "
+           "kernel launch a planned sum")
     _check(cams == PIN_ENGINE_CAMERAS, f"{cams} cameras registered, want {PIN_ENGINE_CAMERAS}")
     _check(bool(np.isfinite([ate, e0, e1]).all()), "non-finite ATE or reprojection error")
     _check(all(np.isfinite(np.hstack(p)).all() for p in eng.global_poses), "non-finite poses")
@@ -1966,7 +2132,8 @@ def engine_phase(dev):
                      cpu_points=res_cpu.points.numpy(),
                      kw=dict(kw, max_iters=b.max_lm_iters), cameras=cams, tracks=tracks,
                      observations=eng.map.num_observations)
-    return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16}), engine_ba
+    return dict(launches, **{"match_top2_fused(bf16=True)": launches_bf16,
+                             "segment_sum_planned": segsum_launches}), engine_ba
 
 
 def _engine_ba_kw(ba_cfg):
@@ -4729,6 +4896,7 @@ def main(argv) -> int:
 
         kernels = [harris_phase(dev, peaks), *match_phase(dev, peaks)]
         nullvec = nullvec_phase(dev, peaks)
+        segsum = segsum_phase(dev, peaks)
         # The ladder's kernel shapes here, with the other kernel cases: late
         # in a long process torch.profiler has dropped kernel activities.
         ladder_k = ladder_kernels(dev, peaks)
@@ -4744,7 +4912,7 @@ def main(argv) -> int:
             **{k: ladder_k["match"][k] for k in ("device_ms", "call_ms", "bound_ms", "plain_ms",
                                                  "library_ms", "max_abs_err")})
         if only_kernels:
-            _print({"kernels": kernels + [nullvec]})
+            _print({"kernels": kernels + [nullvec, segsum]})
             print("chip_smoke: --only-kernels given: slice and engine phases skipped, "
                   "no result line", file=sys.stderr)
             return 0
@@ -4775,8 +4943,9 @@ def main(argv) -> int:
             k["launches_train"] = {run: n.get(k["name"], 0) for run, n in train.items()}
             k["launches_scenarios"] = {run: n.get(k["name"], 0) for run, n in scenarios.items()}
             k["launches_ladder"] = {run: n.get(k["name"], 0) for run, n in ladder.items()}
+        segsum["launches"] = launches.get(segsum["name"], 0)
         print(smi, flush=True)
-        _print({"kernels": kernels + [nullvec]})
+        _print({"kernels": kernels + [nullvec, segsum]})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,
                                        "count": torch.cuda.device_count()}})
         return 0

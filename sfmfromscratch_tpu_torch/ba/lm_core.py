@@ -32,6 +32,7 @@ from sfmfromscratch_tpu_torch.ba.schur import (
     build_normal_blocks,
     conjugate_gradient,
     schur_matvec,
+    schur_plans,
     schur_rhs,
     segment_sum,
     solve_schur,
@@ -113,11 +114,12 @@ def _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, cam_fixed, red=None):
     Hss = red(torch.sum(Js * Js))
     Hss_d = Hss * (1.0 + lam) + eps
     gs = red(torch.sum(Js * r))
-    Wsp = red(segment_sum(torch.einsum("ok,okj->oj", Js, Jp), op.obs_pt, Pn))  # (P, 3)
-    Hsc = red(segment_sum(torch.einsum("ok,oki->oi", Js, Jc), op.obs_cam, C))  # (C, 6)
-    VinvWsp = torch.einsum("pij,pj->pi", op.Vinv, Wsp)                         # (P, 3)
+    pc, pp = (None, None) if op.plans is None else (op.plans.cam, op.plans.pt)
+    Wsp = red(segment_sum(torch.einsum("ok,okj->oj", Js, Jp), op.obs_pt, Pn, pp))  # (P, 3)
+    Hsc = red(segment_sum(torch.einsum("ok,oki->oi", Js, Jc), op.obs_cam, C, pc))  # (C, 6)
+    VinvWsp = torch.einsum("pij,pj->pi", op.Vinv, Wsp)                             # (P, 3)
     d_o = torch.einsum("oij,oj->oi", op.W, VinvWsp[op.obs_pt])
-    q = Hsc - red(segment_sum(d_o, op.obs_cam, C))
+    q = Hsc - red(segment_sum(d_o, op.obs_cam, C, pc))
     hss_red = Hss_d - torch.sum(Wsp * VinvWsp)
     b_s = gs - torch.sum(Wsp * torch.einsum("pij,pj->pi", op.Vinv, op.gp))
 
@@ -161,8 +163,13 @@ def lm_run(
     ``max_iters``; with ``selfcal`` the shared focal scale moves too,
     clipped to [0.5, 2]. ``base``'s observation arrays may be a shard of
     the problem's, with ``reduce_fn`` summing over the shards; cameras,
-    points and K are whole on every shard. Each iteration adds 1 to the
-    counter ``lm_iters`` of the innermost open span (``profiling.count``)."""
+    points and K are whole on every shard. The segment sums' plans
+    (``schur_plans``: cameras and points, and (point, camera) pairs on the
+    dense path) are built once, before the loop, from ``base``'s
+    observations. Counters of the innermost open span
+    (``profiling.count``): ``segsum_plans`` grows by the plans built,
+    ``lm_iters`` by 1 each iteration and ``segsum_launches`` by 1 each
+    planned segment sum (``ba/schur.py::segment_sum``)."""
     if selfcal and use_dense:
         raise ValueError("the bordered selfcal solve has no dense path")
     red = reduce_fn or (lambda x: x)
@@ -191,6 +198,8 @@ def lm_run(
     cost = cost0
     done = torch.zeros((), dtype=torch.bool, device=dev)
     eta = scalar(0.15 if forcing else 0.0)
+    plans = schur_plans(base.obs_cam, base.obs_pt, C, Pn, dense=use_dense)
+    profiling.count("segsum_plans", sum(plan is not None for plan in plans))
     it = 0
     while it < max_iters and not bool(done):
         profiling.count("lm_iters")
@@ -206,7 +215,7 @@ def lm_run(
             Jp = Jp * hw[:, None, None]
             if selfcal:
                 Js = Js * hw[:, None]
-        op = build_normal_blocks(Jc, Jp, r, base.obs_cam, base.obs_pt, C, Pn, lam, red)
+        op = build_normal_blocks(Jc, Jp, r, base.obs_cam, base.obs_pt, C, Pn, lam, red, plans)
         if selfcal:
             dc, dp, ds = _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, base.cam_fixed,
                                          red)

@@ -10,10 +10,16 @@ with U block-diagonal over cameras (6x6), V block-diagonal over points (3x3)
 and W one 6x3 block per observation. Eliminating the points gives the
 reduced camera system S dc = b, S = U - W V^-1 W', b = gc - W V^-1 gp.
 
-Segment sums are ``index_add_`` on the CPU and the sort-based
-``index_put_(accumulate=True)`` on the card: ``index_add_`` on the card adds
-with atomics in whatever order the threads land, so the same problem took
-another LM path, to another final error, from run to run. Two backends: the
+Segment sums add in a fixed order on every device: ``index_add_`` on the
+card adds with atomics in whatever order the threads land, so the same
+problem took another LM path, to another final error, from run to run. The
+observations' order is fixed within an LM solve, so ``lm_run`` builds a
+``SegmentPlan`` of each index vector once (``schur_plans``: cameras, points
+and, on the dense path, (point, camera) pairs) and carries them on
+``SchurOperands``; every segment sum of the solve takes its plan, and on the
+card one launch of ``csrc/segment_sum.cu`` (``ops/cuda/segsum_kernel.py``)
+over it. Without a plan a segment sum is ``index_add_`` on the CPU and the
+sort-based ``index_put_(accumulate=True)`` on the card. Two backends: the
 exact dense Cholesky of S for small camera counts (``dense_gate``), and
 matrix-free block-Jacobi PCG otherwise.
 
@@ -27,12 +33,30 @@ values.
 
 from __future__ import annotations
 
-from typing import NamedTuple, Tuple
+import math
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
+from sfmfromscratch_tpu_torch.ops.cuda import segsum_kernel
 from sfmfromscratch_tpu_torch.ops.smallsvd import inv3_spd
+from sfmfromscratch_tpu_torch.utils import profiling
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
+
+
+class SegmentPlan(NamedTuple):
+    """How the rows of one index vector fall into segments (``segment_plan``)."""
+    idx: torch.Tensor        # (O,) the segment of each row, as given
+    perm: torch.Tensor       # (O,) int32, the rows in segment order (a stable sort)
+    offsets: torch.Tensor    # (S+1,) int32, segment starts in perm, empty segments included
+    long_segs: torch.Tensor  # (L,) int32, the segments of more than LONG_ROWS rows
+    group: int               # lanes of every other segment on the card
+
+
+class SchurPlans(NamedTuple):
+    cam: SegmentPlan                      # obs_cam over the cameras
+    pt: SegmentPlan                       # obs_pt over the points
+    point_cam: Optional[SegmentPlan]      # obs_pt * C + obs_cam over P * C (dense path)
 
 
 class SchurOperands(NamedTuple):
@@ -43,19 +67,70 @@ class SchurOperands(NamedTuple):
     gp: torch.Tensor       # (P, 3)
     obs_cam: torch.Tensor  # (O,)
     obs_pt: torch.Tensor   # (O,)
+    plans: Optional[SchurPlans] = None
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
     return x
 
 
-def segment_sum(x: torch.Tensor, idx: torch.Tensor, num_segments: int) -> torch.Tensor:
+def segment_plan(idx: torch.Tensor, num_segments: int) -> SegmentPlan:
+    """The plan of ``idx`` (O,), in-range indices, over ``num_segments``
+    segments, on ``idx``'s device: one host read, of the plan's launch
+    shape. Raises where an index is out of range."""
+    O, S = idx.shape[0], num_segments
+    if O >= 2 ** 31 or not 0 < S < 2 ** 31 - 1:
+        raise ValueError(f"segment plan of {O} rows and {S} segments: out of int32's range")
+    sorted_idx, perm = torch.sort(idx, stable=True)
+    bounds = torch.arange(S + 1, dtype=sorted_idx.dtype, device=idx.device)
+    offsets = torch.searchsorted(sorted_idx, bounds, out_int32=True)
+    counts = offsets[1:] - offsets[:-1]
+    long_mask = counts > segsum_kernel.LONG_ROWS
+    # The long segments first, in index order.
+    order = torch.argsort(long_mask.to(torch.uint8), descending=True, stable=True)
+    num_long, max_short, first, last = torch.stack([
+        long_mask.sum(dtype=torch.int32), torch.where(long_mask, 0, counts).max(),
+        offsets[0], offsets[-1]]).tolist()
+    if (first, last) != (0, O):
+        raise ValueError(f"segment plan: indices outside [0, {S})")
+    lanes = max(1, -(-max_short // segsum_kernel.ROWS_PER_LANE))
+    group = min(32, 1 << (lanes - 1).bit_length())
+    return SegmentPlan(idx=idx, perm=perm.to(torch.int32), offsets=offsets,
+                       long_segs=order[:num_long].to(torch.int32), group=group)
+
+
+def schur_plans(obs_cam: torch.Tensor, obs_pt: torch.Tensor, num_cameras: int,
+                num_points: int, dense: bool) -> SchurPlans:
+    """The plans of one LM solve's segment sums: 2, or 3 with ``dense``."""
+    return SchurPlans(
+        cam=segment_plan(obs_cam, num_cameras),
+        pt=segment_plan(obs_pt, num_points),
+        point_cam=(segment_plan(obs_pt * num_cameras + obs_cam, num_points * num_cameras)
+                   if dense else None))
+
+
+def _plan(op: SchurOperands, which: str) -> Optional[SegmentPlan]:
+    return None if op.plans is None else getattr(op.plans, which)
+
+
+def segment_sum(x: torch.Tensor, idx: torch.Tensor, num_segments: int,
+                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
     """``jax.ops.segment_sum`` for in-range indices, deterministic on every
-    device (each segment adds its rows in index order)."""
-    out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
-    if x.is_cuda:
-        return out.index_put_((idx,), x, accumulate=True)
-    return out.index_add_(0, idx, x)
+    device. With ``plan`` (``segment_plan(idx, num_segments)``) the card adds
+    in one launch of the segment-sum kernel, in the order the plan fixes, and
+    the counter ``segsum_launches`` of the innermost open span grows by one;
+    the CPU adds each segment's rows in index order either way."""
+    if plan is None:
+        out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
+        if x.is_cuda:
+            return out.index_put_((idx,), x, accumulate=True)
+        return out.index_add_(0, idx, x)
+    if plan.offsets.shape[0] != num_segments + 1:
+        raise ValueError(f"a plan of {plan.offsets.shape[0] - 1} segments for {num_segments}")
+    profiling.count("segsum_launches")
+    rest = tuple(x.shape[1:])
+    rows = x.reshape(x.shape[0], math.prod(rest)).contiguous()
+    return segsum_kernel.segment_sum_planned(rows, plan).reshape((num_segments,) + rest)
 
 
 @mm_f32
@@ -65,23 +140,27 @@ def build_normal_blocks(
     num_cameras: int, num_points: int,
     lam: torch.Tensor,
     reduce_fn=None,
+    plans: Optional[SchurPlans] = None,
 ) -> SchurOperands:
     """Assemble damped U, V^-1, W, gc, gp from per-observation blocks.
     ``reduce_fn`` reduces the four segment sums across observation shards
     before the damping, which thus acts on the fully reduced diagonal.
     Damping is multiplicative on the diagonal, diag += lam * diag + 1e-8;
-    V is inverted by the closed-form SPD Cholesky (``inv3_spd``)."""
+    V is inverted by the closed-form SPD Cholesky (``inv3_spd``). ``plans``
+    (``schur_plans`` of ``obs_cam`` and ``obs_pt``) go to every segment sum
+    here and, on the operands, to every later one."""
     red = reduce_fn or _identity
+    pc, pp = (None, None) if plans is None else (plans.cam, plans.pt)
     UtU = torch.einsum("oki,okj->oij", Jc, Jc)          # (O, 6, 6)
     VtV = torch.einsum("oki,okj->oij", Jp, Jp)          # (O, 3, 3)
     W = torch.einsum("oki,okj->oij", Jc, Jp)            # (O, 6, 3)
     gc_o = torch.einsum("oki,ok->oi", Jc, r)            # (O, 6)
     gp_o = torch.einsum("oki,ok->oi", Jp, r)            # (O, 3)
 
-    U = red(segment_sum(UtU, obs_cam, num_cameras))
-    V = red(segment_sum(VtV, obs_pt, num_points))
-    gc = red(segment_sum(gc_o, obs_cam, num_cameras))
-    gp = red(segment_sum(gp_o, obs_pt, num_points))
+    U = red(segment_sum(UtU, obs_cam, num_cameras, pc))
+    V = red(segment_sum(VtV, obs_pt, num_points, pp))
+    gc = red(segment_sum(gc_o, obs_cam, num_cameras, pc))
+    gp = red(segment_sum(gp_o, obs_pt, num_points, pp))
 
     eps = 1e-8
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
@@ -89,7 +168,7 @@ def build_normal_blocks(
     U = U + eye6 * (lam * torch.diagonal(U, dim1=-2, dim2=-1) + eps)[..., None, :]
     V = V + eye3 * (lam * torch.diagonal(V, dim1=-2, dim2=-1) + eps)[..., None, :]
     return SchurOperands(U=U, Vinv=inv3_spd(V), W=W, gc=gc, gp=gp,
-                         obs_cam=obs_cam, obs_pt=obs_pt)
+                         obs_cam=obs_cam, obs_pt=obs_pt, plans=plans)
 
 
 @mm_f32
@@ -100,10 +179,10 @@ def schur_matvec(op: SchurOperands, x: torch.Tensor, reduce_fn=None) -> torch.Te
     num_points = op.Vinv.shape[0]
     Ux = torch.einsum("cij,cj->ci", op.U, x)
     a = torch.einsum("oji,oj->oi", op.W, x[op.obs_cam])            # W' x  (O, 3)
-    b = red(segment_sum(a, op.obs_pt, num_points))
+    b = red(segment_sum(a, op.obs_pt, num_points, _plan(op, "pt")))
     c = torch.einsum("pij,pj->pi", op.Vinv, b)                     # V^-1  (P, 3)
     d = torch.einsum("oij,oj->oi", op.W, c[op.obs_pt])             # W     (O, 6)
-    return Ux - red(segment_sum(d, op.obs_cam, op.U.shape[0]))
+    return Ux - red(segment_sum(d, op.obs_cam, op.U.shape[0], _plan(op, "cam")))
 
 
 @mm_f32
@@ -112,7 +191,7 @@ def schur_rhs(op: SchurOperands, reduce_fn=None) -> torch.Tensor:
     red = reduce_fn or _identity
     c = torch.einsum("pij,pj->pi", op.Vinv, op.gp)
     d = torch.einsum("oij,oj->oi", op.W, c[op.obs_pt])
-    return op.gc - red(segment_sum(d, op.obs_cam, op.U.shape[0]))
+    return op.gc - red(segment_sum(d, op.obs_cam, op.U.shape[0], _plan(op, "cam")))
 
 
 @mm_f32
@@ -120,7 +199,7 @@ def back_substitute_points(op: SchurOperands, dc: torch.Tensor, reduce_fn=None) 
     """dp = V^-1 (gp - W' dc)."""
     red = reduce_fn or _identity
     a = torch.einsum("oji,oj->oi", op.W, dc[op.obs_cam])
-    b = red(segment_sum(a, op.obs_pt, op.Vinv.shape[0]))
+    b = red(segment_sum(a, op.obs_pt, op.Vinv.shape[0], _plan(op, "pt")))
     return torch.einsum("pij,pj->pi", op.Vinv, op.gp - b)
 
 
@@ -161,11 +240,12 @@ def conjugate_gradient(
 
 def point_cam_blocks(
     W: torch.Tensor, obs_cam: torch.Tensor, obs_pt: torch.Tensor,
-    num_cameras: int, num_points: int,
+    num_cameras: int, num_points: int, plan: Optional[SegmentPlan] = None,
 ) -> torch.Tensor:
-    """(P*C, 3, 6) per-(point, camera) sums of W^T."""
-    return segment_sum(W.transpose(-1, -2), obs_pt * num_cameras + obs_cam,
-                       num_points * num_cameras)
+    """(P*C, 3, 6) per-(point, camera) sums of W^T; ``plan`` is
+    ``schur_plans``' ``point_cam``."""
+    idx = plan.idx if plan is not None else obs_pt * num_cameras + obs_cam
+    return segment_sum(W.transpose(-1, -2), idx, num_points * num_cameras, plan)
 
 
 @mm_f32
@@ -192,7 +272,8 @@ def solve_schur_dense(op: SchurOperands, reduce_fn=None) -> Tuple[torch.Tensor, 
     C = op.U.shape[0]
     P = op.Vinv.shape[0]
     S = dense_schur_from_blocks(op.U, op.Vinv,
-                                red(point_cam_blocks(op.W, op.obs_cam, op.obs_pt, C, P)))
+                                red(point_cam_blocks(op.W, op.obs_cam, op.obs_pt, C, P,
+                                                     _plan(op, "point_cam"))))
     b = schur_rhs(op, red).reshape(-1)
     L, info = torch.linalg.cholesky_ex(S)
     dc = torch.cholesky_solve(b[:, None], L)[:, 0]

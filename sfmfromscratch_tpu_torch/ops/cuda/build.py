@@ -31,6 +31,7 @@ SOURCES = {
     "harris": "harris.cu",
     "match_top2": "match_top2.cu",
     "nullvec_qr": "nullvec_qr.cu",
+    "segment_sum": "segment_sum.cu",
 }
 
 NVCC_FLAGS = [

@@ -811,18 +811,19 @@ def test_build_is_keyed_by_source(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
     build.build_all()
     calls = (tmp_path / "calls.log").read_text().splitlines()
-    assert len(calls) == len(build.SOURCES) == 3
+    assert len(calls) == len(build.SOURCES) == 4
     assert all("arch=compute_90a,code=sm_90a" in c and "-shared" in c for c in calls)
     paths = {n: build.library_path(n) for n in build.SOURCES}
     assert all(os.path.exists(p) for p in paths.values())
     build.build_all()
-    assert len((tmp_path / "calls.log").read_text().splitlines()) == 3
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 4
     (csrc / "harris.cu").write_text((csrc / "harris.cu").read_text() + "\n// changed\n")
     assert build.library_path("harris") != paths["harris"]
     assert build.library_path("match_top2") == paths["match_top2"]
     assert build.library_path("nullvec_qr") == paths["nullvec_qr"]
+    assert build.library_path("segment_sum") == paths["segment_sum"]
     build.build_all()
-    assert len((tmp_path / "calls.log").read_text().splitlines()) == 4
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 5
 
 
 def test_build_keeps_nvcc_report(tmp_path, monkeypatch):

@@ -292,3 +292,31 @@ def test_profile_engine_registration_readings():
     assert got["register_pnp_us_per_frame"] == pytest.approx(28.0)
     assert got["register_link_ms_per_frame"] == pytest.approx(0.004)
     assert got["register_failed_per_job"] == pytest.approx(1.5)
+
+
+def test_profile_engine_segsum_readings():
+    """The BA's segment-sum readings of ``tools/profile_engine.py`` on
+    hand-made spans (ns): planned sums an LM iteration, plans a ``ba`` span
+    (None where no span counts them, as on a tree before the plans), and
+    named kernels' device time inside the traced ``ba`` spans."""
+    runs = [[_span("run", 0, 9_000_000, parent=None),
+             _span("ba", 0, 4_000_000, lm_iters=10, segsum_plans=2, segsum_launches=700)],
+            [_span("run", 0, 5_000_000, parent=None),
+             _span("ba", 0, 1_000_000, lm_iters=4, segsum_plans=3, segsum_launches=28),
+             _span("ba", 1_000_000, 2_000_000, lm_iters=6, segsum_plans=2,
+                   segsum_launches=200)]]
+    assert profile_engine.counter_ratio(runs, "ba", "segsum_launches", "lm_iters") == \
+        pytest.approx(928 / 20)
+    assert profile_engine.per_span(runs, "ba", "segsum_plans") == pytest.approx(7 / 3)
+    assert profile_engine.per_span([[_span("ba", 0, 10, lm_iters=3)]], "ba",
+                                   "segsum_plans") is None
+    traced = [_span("run", 0, 100, parent=None), _span("ba", 10, 50), _span("ba", 60, 90)]
+    pieces = profile_engine.union_pieces([(0, 100)])
+    kernels = {"ba_index_put_ms": profile_engine.union_pieces([(0, 20), (45, 70)]),
+               "ba_segsum_kernel_ms": ([], [])}
+    got = profile_engine.span_readings(traced, traced, pieces, runs, views=10,
+                                       kernel_pieces=kernels)
+    assert got["ba_segsum_launches_per_lm_iter"] == pytest.approx(928 / 20)
+    assert got["segsum_plans_per_ba"] == pytest.approx(7 / 3)
+    assert got["ba_index_put_ms"] == pytest.approx(1e-6 * (10 + 5 + 10))
+    assert got["ba_segsum_kernel_ms"] == 0

@@ -3,13 +3,19 @@
 Builds the kernels, renders ``chip_smoke.py``'s 10-view bench sequence and
 runs ``SfmEngine`` on it at the bench configuration ``--runs`` times, then
 solves the last run's final BA problem ``--runs`` more times on the card
-and once on the CPU. It does this twice: with ``ba/schur.py::segment_sum`` as
-it is (sorted, fixed-order adds on the card) and with the atomic
-``index_add_`` it replaced. Prints the card's name and power limit, then one
-JSON line per variant: each run's final mean reprojection error, LM
-iterations and BA seconds, and the CPU's.
+and once on the CPU. It does this for three versions of
+``ba/schur.py::segment_sum`` on the card: "planned" (as it is: BA's sums in
+one launch of the segment-sum kernel over the plans of each solve, in a
+fixed order), "sorted" (the sorted, fixed-order ``index_put_(accumulate=True)``
+it replaced) and "atomic" (the ``index_add_`` that one replaced). With
+``--workload <cell> --seed <n>`` the engine runs are a benchmark cell's job 0
+(``portbench/``, after its warm-up job), and the re-solved problem is that
+job's last BA problem. Prints the card's name and power limit, then one JSON
+line per version: each run's final mean reprojection error, LM iterations
+and BA seconds, the re-solves' and the CPU's, and whether the card ended on
+one final error across the runs.
 
-    python3 tools/ba_repro.py [--runs 4]
+    python3 tools/ba_repro.py [--runs 4] [--workload kf150_video --seed 3200000101]
 
 Needs a CUDA card.
 """
@@ -25,16 +31,27 @@ import time
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 
-def _atomic_segment_sum(x, idx, num_segments):
+# The replaced versions, with segment_sum's signature; their code takes the
+# place of segment_sum's own, so they read nothing outside their arguments.
+def _atomic_segment_sum(x, idx, num_segments, plan=None):
     out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
     return out.index_add_(0, idx, x)
+
+
+def _sorted_segment_sum(x, idx, num_segments, plan=None):
+    out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
+    return out.index_put_((idx,), x, accumulate=True)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--runs", type=int, default=4)
+    ap.add_argument("--workload", default=None, help="a benchmark cell's job 0 in place of "
+                                                     "the bench sequence")
+    ap.add_argument("--seed", type=int, default=1, help="the cell's run seed (--workload)")
     args = ap.parse_args(argv)
 
     import torch
@@ -52,22 +69,43 @@ def main(argv=None) -> int:
     print(cs._nvidia_smi(), flush=True)
     build_all()
     dev = torch.device("cuda")
-    cfg = cs.engine_config()
-    b = cfg.ba
-    kw = dict(cg_iters=60, init_damping=b.init_damping, damping_up=b.damping_up,
-              damping_down=b.damping_down, ftol=b.ftol, huber_delta=b.huber_delta)
     # segment_sum is imported by name in several modules: swap its code, so
-    # every caller takes the variant under test.
-    sorted_code = schur.segment_sum.__code__
+    # every caller takes the version under test.
+    planned_code = schur.segment_sum.__code__
     try:
         with tempfile.TemporaryDirectory(prefix="ba_repro_seq_") as seq:
-            K, _ = cs.bench_sequence(seq, 10)
-            SfmEngine(seq, 10, config=cfg, single_K=K, device=dev)   # warm-up
-            for name, code in (("atomic", _atomic_segment_sum.__code__), ("sorted", sorted_code)):
+            if args.workload:
+                from profile_engine import _cell_runs
+
+                engine, cell_cfg, ekw, warm, pool, seed_of = _cell_runs(args.workload,
+                                                                       args.seed, seq)
+                cfg = cell_cfg(seed_of(0))
+
+                def job(sc):
+                    return engine(sc.dir, len(sc.files), config=cell_cfg(seed_of(0)),
+                                  single_K=sc.K, device=dev, **ekw)
+
+                job(warm)                                                  # warm-up
+                scene = pool[0]
+            else:
+                cfg = cs.engine_config()
+                K, _ = cs.bench_sequence(seq, 10)
+
+                def job(_):
+                    return SfmEngine(seq, 10, config=cfg, single_K=K, device=dev)
+
+                job(None)                                                  # warm-up
+                scene = None
+            b = cfg.ba
+            kw = dict(cg_iters=60, init_damping=b.init_damping, damping_up=b.damping_up,
+                      damping_down=b.damping_down, ftol=b.ftol, huber_delta=b.huber_delta)
+            for name, code in (("atomic", _atomic_segment_sum.__code__),
+                               ("sorted", _sorted_segment_sum.__code__),
+                               ("planned", planned_code)):
                 schur.segment_sum.__code__ = code
                 engine_runs = []
                 for _ in range(args.runs):
-                    eng = SfmEngine(seq, 10, config=cfg, single_K=K, device=dev)
+                    eng = job(scene)
                     torch.cuda.synchronize()
                     engine_runs.append([float(eng.errors_before_after_ba[1]),
                                         eng.ba_result.iterations_used, eng.stage_times["ba"]])
@@ -81,13 +119,17 @@ def main(argv=None) -> int:
                                      time.perf_counter() - t0])
                 prob_cpu = BAProblem(*(None if v is None else v.cpu() for v in eng.ba_problem))
                 cpu = bundle_adjust(prob_cpu, max_iters=b.max_lm_iters, **kw)
-                print(json.dumps({"segment_sum": name,
+                errors = {r[0] for r in engine_runs} | {r[0] for r in resolves}
+                print(json.dumps({"segment_sum": name, "workload": args.workload,
                                   "engine_runs_error_px_iters_ba_s": engine_runs,
                                   "resolves_error_px_iters_s": resolves,
+                                  "one_final_error": len({r[0] for r in resolves}) == 1
+                                  and len({r[0] for r in engine_runs}) == 1,
+                                  "distinct_final_errors": len(errors),
                                   "cpu_error_px": float(cpu.final_mean_error),
                                   "cpu_iters": cpu.iterations_used}), flush=True)
     finally:
-        schur.segment_sum.__code__ = sorted_code
+        schur.segment_sum.__code__ = planned_code
     return 0
 
 

@@ -5,8 +5,9 @@ Builds the port's kernels, warms the engine at the bench configuration
 
 1. times ``--runs`` warm runs with a host clock (the engine ends in host
    fetches) and keeps each run's ``stage_times`` (each stage ends at a
-   device synchronize) and the null-vector kernel's launches and systems
-   (its wrapper's counters);
+   device synchronize), the null-vector kernel's launches and systems
+   (its wrapper's counters), and the segment-sum kernel's launches beside
+   the planned sums its spans counted (``segsum_launches``);
 2. traces the first timed run's scene and seed once more with
    ``torch.profiler`` (CUDA activity): the kernels with the most device
    time, the device's busy time (the union of its kernel and copy
@@ -40,7 +41,13 @@ and ``register``;
 ``hyps``), ``filter_nullvec_launches_per_hyp`` (their counter
 ``nullvec_launches`` over their ``hyps``: the null-vector kernel's
 launches a hypothesis; 0 where no span counts them),
-``decode_ms_per_view`` (the ``decode`` spans over the views); for the
+``ba_segsum_launches_per_lm_iter`` (the ``ba`` spans' ``segsum_launches``,
+the planned segment sums of ``ba/schur.py``, over their ``lm_iters``) and
+``segsum_plans_per_ba`` (their ``segsum_plans`` a ``ba`` span; None on a
+tree whose BA builds no plans), ``ba_index_put_ms`` and
+``ba_segsum_kernel_ms`` (device time inside the traced run's ``ba`` spans
+of ``index_put_``'s ``indexing_backward_kernel*`` and of the segment-sum
+kernel), ``decode_ms_per_view`` (the ``decode`` spans over the views); for the
 keyframed global engine ``register_pnp_us_per_frame`` and
 ``register_link_ms_per_frame`` (the ``register.pnp`` and ``register.link``
 spans over the ``register`` spans' ``frames``) and
@@ -131,6 +138,15 @@ def counter_ratio(runs, name, num, den):
     return sum(s.counters.get(num, 0) for s in spans) / d if d else None
 
 
+def per_span(runs, name, counter):
+    """Counter ``counter`` of the spans ``name`` of ``runs``, over those
+    spans; None where none of them has it."""
+    spans = [s for spans in runs for s in _closed(spans, (name,))]
+    if not any(counter in s.counters for s in spans):
+        return None
+    return sum(s.counters.get(counter, 0) for s in spans) / len(spans)
+
+
 def per_run(runs, name, counter):
     """Counter ``counter`` of the spans ``name`` summed over the runs that
     have such a span, over those runs; None where none has."""
@@ -140,13 +156,20 @@ def per_run(runs, name, counter):
             if having else None)
 
 
-def span_readings(traced, plain, pieces, runs, views):
+def span_readings(traced, plain, pieces, runs, views, kernel_pieces=None):
     """The span readings of a traced run's spans ``traced`` against the
     first timed run's ``plain``, the device's union ``pieces`` (ns on the
     spans' clock) and the timed runs' spans ``runs`` of ``views`` views in
-    all."""
+    all; ``kernel_pieces`` maps a reading's name to the union of some
+    kernels' intervals, read as their ms inside the traced ``ba`` spans."""
     out = {k: stage_idle_share(traced, plain, pieces, v) for k, v in IDLE_STAGES.items()}
     out["ba_ms_per_lm_iter"] = per_count(runs, "ba", "lm_iters", 1e3)
+    out["ba_segsum_launches_per_lm_iter"] = counter_ratio(runs, "ba", "segsum_launches",
+                                                          "lm_iters")
+    out["segsum_plans_per_ba"] = per_span(runs, "ba", "segsum_plans")
+    for key, kp in (kernel_pieces or {}).items():
+        out[key] = 1e-6 * sum(busy_inside(kp, s.start_ns, s.end_ns)
+                              for s in _closed(traced, ("ba",)))
     out["filter_ransac_us_per_hyp"] = per_count(runs, "filter.ransac", "hyps", 1e6)
     out["filter_nullvec_launches_per_hyp"] = counter_ratio(runs, "filter.ransac",
                                                            "nullvec_launches", "hyps")
@@ -213,7 +236,7 @@ def main() -> int:
         print("profile_engine: no CUDA device available", file=sys.stderr)
         return 2
     from sfmfromscratch_tpu_torch.native.build import build_all as native_build_all
-    from sfmfromscratch_tpu_torch.ops.cuda import nullvec_kernel
+    from sfmfromscratch_tpu_torch.ops.cuda import nullvec_kernel, segsum_kernel
     from sfmfromscratch_tpu_torch.ops.cuda.build import build_all
     from sfmfromscratch_tpu_torch.pipeline.global_sfm import GlobalSfmEngine
     from sfmfromscratch_tpu_torch.pipeline.incremental import SfmEngine
@@ -278,9 +301,10 @@ def main() -> int:
               "workload": args.workload, "seed": args.seed if args.workload else None})
         job(-1)
         torch.cuda.synchronize()
-        walls, stages, runs, views, nullvec = [], [], [], 0, []
+        walls, stages, runs, views, nullvec, segsum = [], [], [], 0, [], []
         for i in range(args.runs):
             n0, s0 = nullvec_kernel.launches, nullvec_kernel.systems
+            k0 = segsum_kernel.launches
             t0 = time.perf_counter()
             n_views, eng = job(i)
             torch.cuda.synchronize()
@@ -288,11 +312,14 @@ def main() -> int:
             stages.append(dict(eng.stage_times))
             runs.append(list(getattr(eng, "spans", None) or []))
             nullvec.append([nullvec_kernel.launches - n0, nullvec_kernel.systems - s0])
+            segsum.append([segsum_kernel.launches - k0,
+                           sum(s.counters.get("segsum_launches", 0) for s in runs[-1])])
             views += n_views
         median = sorted(walls)[len(walls) // 2]
         emit({"part": "engine_warm_s", "runs": walls, "median": median,
               "frames_per_s_median": views / len(walls) / median,
-              "nullvec_launches_systems": nullvec})
+              "nullvec_launches_systems": nullvec,
+              "segsum_kernel_launches_span_launches": segsum})
         emit({"part": "stage_times_s", "runs": stages,
               "filter_hyps_used_last_run": (None if eng.filter_hyps_used is None
                                             else [int(h) for h in eng.filter_hyps_used])})
@@ -308,12 +335,20 @@ def main() -> int:
             torch.cuda.synchronize()
             wall_us = (time.perf_counter() - t0) * 1e6
     intervals, by_name, d2h = [], {}, 0
+    # The BA's segment sums: index_put_'s kernels, and the kernel that took
+    # their place.
+    ba_kernels = {"ba_index_put_ms": "indexing_backward_kernel",
+                  "ba_segsum_kernel_ms": "segment_sum_kernel"}
+    ba_intervals = {k: [] for k in ba_kernels}
     for e in prof.profiler.kineto_results.events():
         name = e.name()
         if e.device_type() != DeviceType.CUDA or name in ("Buffer Flush", "Activity Buffer Request"):
             continue
         start, dur = e.start_ns(), e.duration_ns()
         intervals.append((start, start + dur))
+        for k, part in ba_kernels.items():
+            if part in name:
+                ba_intervals[k].append((start, start + dur))
         tot, cnt = by_name.get(name, (0.0, 0))
         by_name[name] = (tot + dur / 1e3, cnt + 1)
         d2h += "DtoH" in name
@@ -329,7 +364,8 @@ def main() -> int:
           "top_device_kernels_ms": [[k[:120], c, us / 1e3] for us, k, c in top[:15]],
           "busy_share_in_stages": inside,
           "stages_s_busy_s": {k: list(v) for k, v in per_stage.items()},
-          "span_readings": (span_readings(spans, runs[0], pieces, runs, views)
+          "span_readings": (span_readings(spans, runs[0], pieces, runs, views,
+                                          {k: union_pieces(v) for k, v in ba_intervals.items()})
                             if spans and runs and runs[0] else None)})
     return 0
 
