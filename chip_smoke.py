@@ -28,7 +28,7 @@ Phases, each printing JSON lines:
              launch a call, results independent of the batch's shape, and its
              times at the engines' stage shapes. Then the segment-sum kernel
              against ``index_put_(accumulate=True)`` at every cell's BA
-             shapes, padding run included: within its stated tolerance, the
+             shapes and every row width it is built for, padding run included: within its stated tolerance, the
              same bits on every call, one launch a call, its times beside
              its bound and ``index_put_``'s. ``--only-kernels`` stops after
              this phase and prints no result line.
@@ -288,9 +288,9 @@ NULLVEC_SHAPES = {"glob20_filter_stage": (54, 512), "inc10_filter_stage": (9, 51
                   "glob20_relpose_stage": (54, 128), "million": (1 << 20,)}
 NULLVEC_PAIRS = 16
 
-# The segment-sum kernel (csrc/segment_sum.cu) against the sorted
-# index_put_(accumulate=True) that BA used before it, at each cell's BA
-# shapes: the plans of a problem built as the engines build theirs, with the
+# The segment-sum kernel (csrc/segment_sum.cu), every segment sum of the
+# port, against the sorted, sequential index_put_(accumulate=True) at each
+# cell's BA shapes: the plans of a problem built as the engines build theirs, with the
 # counts of one job of each cell on the card (cameras, points and
 # observations, real and padded; the mean track length; an H100 run), each
 # point seen by a run of consecutive cameras of geometric length, the
@@ -316,8 +316,11 @@ SEGSUM_CELLS = {
 # The segment sums of one LM iteration, by plan and row width: the normal
 # blocks (U 36, V 9, gc 6, gp 3), the Schur right side and matvec (6 over
 # cameras, 3 over points; the matvec twice a PCG step), the dense path's
-# per-(point, camera) blocks (18).
-SEGSUM_SUMS = (("cam", 36), ("cam", 6), ("pt", 9), ("pt", 3), ("point_cam", 18))
+# per-(point, camera) blocks (18); and the other widths the port sums over
+# such an index vector: triangulation's 4x4 normal matrices (16) and its
+# scalar costs and counts (1), as the chain refresh's weights.
+SEGSUM_SUMS = (("cam", 36), ("cam", 6), ("pt", 9), ("pt", 3), ("point_cam", 18), ("pt", 16),
+               ("pt", 1))
 SEGSUM_TOL = 2.0
 SEGSUM_MAX_MS = 0.010
 

@@ -34,6 +34,7 @@ from sfmfromscratch_tpu_torch.ba.schur import (
     schur_matvec,
     schur_plans,
     schur_rhs,
+    segment_plan,
     segment_sum,
     solve_schur,
     solve_schur_dense,
@@ -109,17 +110,15 @@ def _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, cam_fixed, red=None):
     reduces the border's sums (Hss, gs, Wsp, Hsc, q) as the normal blocks."""
     red = red or (lambda x: x)
     C = op.U.shape[0]
-    Pn = op.Vinv.shape[0]
     eps = 1e-8
     Hss = red(torch.sum(Js * Js))
     Hss_d = Hss * (1.0 + lam) + eps
     gs = red(torch.sum(Js * r))
-    pc, pp = (None, None) if op.plans is None else (op.plans.cam, op.plans.pt)
-    Wsp = red(segment_sum(torch.einsum("ok,okj->oj", Js, Jp), op.obs_pt, Pn, pp))  # (P, 3)
-    Hsc = red(segment_sum(torch.einsum("ok,oki->oi", Js, Jc), op.obs_cam, C, pc))  # (C, 6)
-    VinvWsp = torch.einsum("pij,pj->pi", op.Vinv, Wsp)                             # (P, 3)
+    Wsp = red(segment_sum(torch.einsum("ok,okj->oj", Js, Jp), op.plans.pt))   # (P, 3)
+    Hsc = red(segment_sum(torch.einsum("ok,oki->oi", Js, Jc), op.plans.cam))  # (C, 6)
+    VinvWsp = torch.einsum("pij,pj->pi", op.Vinv, Wsp)                        # (P, 3)
     d_o = torch.einsum("oij,oj->oi", op.W, VinvWsp[op.obs_pt])
-    q = Hsc - red(segment_sum(d_o, op.obs_cam, C, pc))
+    q = Hsc - red(segment_sum(d_o, op.plans.cam))
     hss_red = Hss_d - torch.sum(Wsp * VinvWsp)
     b_s = gs - torch.sum(Wsp * torch.einsum("pij,pj->pi", op.Vinv, op.gp))
 
@@ -167,9 +166,9 @@ def lm_run(
     (``schur_plans``: cameras and points, and (point, camera) pairs on the
     dense path) are built once, before the loop, from ``base``'s
     observations. Counters of the innermost open span
-    (``profiling.count``): ``segsum_plans`` grows by the plans built,
-    ``lm_iters`` by 1 each iteration and ``segsum_launches`` by 1 each
-    planned segment sum (``ba/schur.py::segment_sum``)."""
+    (``profiling.count``): ``segsum_plans`` grows by 1 each plan built
+    (``ba/schur.py::segment_plan``), ``lm_iters`` by 1 each iteration and
+    ``segsum_launches`` by 1 each segment sum (``segment_sum``)."""
     if selfcal and use_dense:
         raise ValueError("the bordered selfcal solve has no dense path")
     red = reduce_fn or (lambda x: x)
@@ -198,8 +197,8 @@ def lm_run(
     cost = cost0
     done = torch.zeros((), dtype=torch.bool, device=dev)
     eta = scalar(0.15 if forcing else 0.0)
-    plans = schur_plans(base.obs_cam, base.obs_pt, C, Pn, dense=use_dense)
-    profiling.count("segsum_plans", sum(plan is not None for plan in plans))
+    plans = schur_plans(base.obs_cam, base.obs_pt, C, Pn)
+    point_cam = segment_plan(base.obs_pt * C + base.obs_cam, Pn * C) if use_dense else None
     it = 0
     while it < max_iters and not bool(done):
         profiling.count("lm_iters")
@@ -215,12 +214,12 @@ def lm_run(
             Jp = Jp * hw[:, None, None]
             if selfcal:
                 Js = Js * hw[:, None]
-        op = build_normal_blocks(Jc, Jp, r, base.obs_cam, base.obs_pt, C, Pn, lam, red, plans)
+        op = build_normal_blocks(Jc, Jp, r, plans, lam, red)
         if selfcal:
             dc, dp, ds = _solve_bordered(op, Js, Jc, Jp, r, lam, cg_iters, eta, base.cam_fixed,
                                          red)
         elif use_dense:
-            dc, dp = solve_schur_dense(op, red)
+            dc, dp = solve_schur_dense(op, point_cam, red)
             eta_used = torch.zeros_like(eta)   # exact solve: always "tight"
         else:
             dc, dp = solve_schur(op, cg_iters=cg_iters, tol_rel=eta, reduce_fn=red)

@@ -10,18 +10,18 @@ with U block-diagonal over cameras (6x6), V block-diagonal over points (3x3)
 and W one 6x3 block per observation. Eliminating the points gives the
 reduced camera system S dc = b, S = U - W V^-1 W', b = gc - W V^-1 gp.
 
-Segment sums add in a fixed order on every device: ``index_add_`` on the
-card adds with atomics in whatever order the threads land, so the same
-problem took another LM path, to another final error, from run to run. The
-observations' order is fixed within an LM solve, so ``lm_run`` builds a
-``SegmentPlan`` of each index vector once (``schur_plans``: cameras, points
-and, on the dense path, (point, camera) pairs) and carries them on
-``SchurOperands``; every segment sum of the solve takes its plan, and on the
-card one launch of ``csrc/segment_sum.cu`` (``ops/cuda/segsum_kernel.py``)
-over it. Without a plan a segment sum is ``index_add_`` on the CPU and the
-sort-based ``index_put_(accumulate=True)`` on the card. Two backends: the
-exact dense Cholesky of S for small camera counts (``dense_gate``), and
-matrix-free block-Jacobi PCG otherwise.
+Every segment sum of the port is ``segment_sum(x, plan)`` over a
+``SegmentPlan`` of its index vector (``segment_plan``), built once for as
+long as the index vector stays fixed: ``lm_run`` plans the cameras and the
+points once per solve (``schur_plans``, carried on ``SchurOperands``), and
+on the dense path the (point, camera) pairs; averaging, triangulation and the
+chain refresh plan their index vectors once per call. The card adds in the
+order the plan fixes, in one launch of ``csrc/segment_sum.cu``
+(``ops/cuda/segsum_kernel.py``), without atomics, so the same problem takes
+the same LM path in every run; the CPU adds each segment's rows in index
+order (``index_add_``). Two backends: the exact dense Cholesky of S for
+small camera counts (``dense_gate``), and matrix-free block-Jacobi PCG
+otherwise.
 
 Every cross-observation sum takes ``reduce_fn`` (None: the identity), applied
 right after the local segment sum. The observation-sharded solver
@@ -34,7 +34,7 @@ values.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -54,9 +54,8 @@ class SegmentPlan(NamedTuple):
 
 
 class SchurPlans(NamedTuple):
-    cam: SegmentPlan                      # obs_cam over the cameras
-    pt: SegmentPlan                       # obs_pt over the points
-    point_cam: Optional[SegmentPlan]      # obs_pt * C + obs_cam over P * C (dense path)
+    cam: SegmentPlan         # obs_cam over the cameras
+    pt: SegmentPlan          # obs_pt over the points
 
 
 class SchurOperands(NamedTuple):
@@ -67,7 +66,7 @@ class SchurOperands(NamedTuple):
     gp: torch.Tensor       # (P, 3)
     obs_cam: torch.Tensor  # (O,)
     obs_pt: torch.Tensor   # (O,)
-    plans: Optional[SchurPlans] = None
+    plans: SchurPlans
 
 
 def _identity(x: torch.Tensor) -> torch.Tensor:
@@ -77,10 +76,19 @@ def _identity(x: torch.Tensor) -> torch.Tensor:
 def segment_plan(idx: torch.Tensor, num_segments: int) -> SegmentPlan:
     """The plan of ``idx`` (O,), in-range indices, over ``num_segments``
     segments, on ``idx``'s device: one host read, of the plan's launch
-    shape. Raises where an index is out of range."""
+    shape, none where there are no rows. Raises where an index is out of
+    range. The counter ``segsum_plans`` of the innermost open span grows by
+    one."""
     O, S = idx.shape[0], num_segments
-    if O >= 2 ** 31 or not 0 < S < 2 ** 31 - 1:
+    if O >= 2 ** 31 or not 0 <= S < 2 ** 31 - 1:
         raise ValueError(f"segment plan of {O} rows and {S} segments: out of int32's range")
+    if S == 0 < O:
+        raise ValueError("segment plan: indices outside [0, 0)")
+    profiling.count("segsum_plans")
+    if O == 0:
+        empty = torch.zeros(0, dtype=torch.int32, device=idx.device)
+        return SegmentPlan(idx=idx, perm=empty, long_segs=empty, group=1,
+                           offsets=torch.zeros(S + 1, dtype=torch.int32, device=idx.device))
     sorted_idx, perm = torch.sort(idx, stable=True)
     bounds = torch.arange(S + 1, dtype=sorted_idx.dtype, device=idx.device)
     offsets = torch.searchsorted(sorted_idx, bounds, out_int32=True)
@@ -100,67 +108,50 @@ def segment_plan(idx: torch.Tensor, num_segments: int) -> SegmentPlan:
 
 
 def schur_plans(obs_cam: torch.Tensor, obs_pt: torch.Tensor, num_cameras: int,
-                num_points: int, dense: bool) -> SchurPlans:
-    """The plans of one LM solve's segment sums: 2, or 3 with ``dense``."""
-    return SchurPlans(
-        cam=segment_plan(obs_cam, num_cameras),
-        pt=segment_plan(obs_pt, num_points),
-        point_cam=(segment_plan(obs_pt * num_cameras + obs_cam, num_points * num_cameras)
-                   if dense else None))
+                num_points: int) -> SchurPlans:
+    """The plans of one LM solve's camera and point sums."""
+    return SchurPlans(cam=segment_plan(obs_cam, num_cameras), pt=segment_plan(obs_pt, num_points))
 
 
-def _plan(op: SchurOperands, which: str) -> Optional[SegmentPlan]:
-    return None if op.plans is None else getattr(op.plans, which)
-
-
-def segment_sum(x: torch.Tensor, idx: torch.Tensor, num_segments: int,
-                plan: Optional[SegmentPlan] = None) -> torch.Tensor:
-    """``jax.ops.segment_sum`` for in-range indices, deterministic on every
-    device. With ``plan`` (``segment_plan(idx, num_segments)``) the card adds
-    in one launch of the segment-sum kernel, in the order the plan fixes, and
-    the counter ``segsum_launches`` of the innermost open span grows by one;
-    the CPU adds each segment's rows in index order either way."""
-    if plan is None:
-        out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
-        if x.is_cuda:
-            return out.index_put_((idx,), x, accumulate=True)
-        return out.index_add_(0, idx, x)
-    if plan.offsets.shape[0] != num_segments + 1:
-        raise ValueError(f"a plan of {plan.offsets.shape[0] - 1} segments for {num_segments}")
-    profiling.count("segsum_launches")
+def segment_sum(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+    """``jax.ops.segment_sum`` of the rows of ``x`` (O, ...) over ``plan``
+    (``segment_plan`` of their indices), deterministic on every device: on
+    the card one launch of the segment-sum kernel in the order the plan
+    fixes, on the CPU each segment's rows added in index order. The counter
+    ``segsum_launches`` of the innermost open span grows by one; a sum of no
+    rows is zeros, with no launch."""
+    S = plan.offsets.shape[0] - 1
     rest = tuple(x.shape[1:])
+    if x.shape[0] == 0:
+        return x.new_zeros((S,) + rest)
+    profiling.count("segsum_launches")
     rows = x.reshape(x.shape[0], math.prod(rest)).contiguous()
-    return segsum_kernel.segment_sum_planned(rows, plan).reshape((num_segments,) + rest)
+    return segsum_kernel.segment_sum_planned(rows, plan).reshape((S,) + rest)
 
 
 @mm_f32
 def build_normal_blocks(
-    Jc: torch.Tensor, Jp: torch.Tensor, r: torch.Tensor,
-    obs_cam: torch.Tensor, obs_pt: torch.Tensor,
-    num_cameras: int, num_points: int,
-    lam: torch.Tensor,
-    reduce_fn=None,
-    plans: Optional[SchurPlans] = None,
+    Jc: torch.Tensor, Jp: torch.Tensor, r: torch.Tensor, plans: SchurPlans,
+    lam: torch.Tensor, reduce_fn=None,
 ) -> SchurOperands:
-    """Assemble damped U, V^-1, W, gc, gp from per-observation blocks.
-    ``reduce_fn`` reduces the four segment sums across observation shards
-    before the damping, which thus acts on the fully reduced diagonal.
-    Damping is multiplicative on the diagonal, diag += lam * diag + 1e-8;
-    V is inverted by the closed-form SPD Cholesky (``inv3_spd``). ``plans``
-    (``schur_plans`` of ``obs_cam`` and ``obs_pt``) go to every segment sum
-    here and, on the operands, to every later one."""
+    """Assemble damped U, V^-1, W, gc, gp from per-observation blocks, the
+    observations' cameras and points given by ``plans`` (``schur_plans``),
+    which go to every segment sum here and, on the operands, to every later
+    one. ``reduce_fn`` reduces the four segment sums across observation
+    shards before the damping, which thus acts on the fully reduced
+    diagonal. Damping is multiplicative on the diagonal, diag += lam * diag
+    + 1e-8; V is inverted by the closed-form SPD Cholesky (``inv3_spd``)."""
     red = reduce_fn or _identity
-    pc, pp = (None, None) if plans is None else (plans.cam, plans.pt)
     UtU = torch.einsum("oki,okj->oij", Jc, Jc)          # (O, 6, 6)
     VtV = torch.einsum("oki,okj->oij", Jp, Jp)          # (O, 3, 3)
     W = torch.einsum("oki,okj->oij", Jc, Jp)            # (O, 6, 3)
     gc_o = torch.einsum("oki,ok->oi", Jc, r)            # (O, 6)
     gp_o = torch.einsum("oki,ok->oi", Jp, r)            # (O, 3)
 
-    U = red(segment_sum(UtU, obs_cam, num_cameras, pc))
-    V = red(segment_sum(VtV, obs_pt, num_points, pp))
-    gc = red(segment_sum(gc_o, obs_cam, num_cameras, pc))
-    gp = red(segment_sum(gp_o, obs_pt, num_points, pp))
+    U = red(segment_sum(UtU, plans.cam))
+    V = red(segment_sum(VtV, plans.pt))
+    gc = red(segment_sum(gc_o, plans.cam))
+    gp = red(segment_sum(gp_o, plans.pt))
 
     eps = 1e-8
     eye6 = torch.eye(6, dtype=U.dtype, device=U.device)
@@ -168,7 +159,7 @@ def build_normal_blocks(
     U = U + eye6 * (lam * torch.diagonal(U, dim1=-2, dim2=-1) + eps)[..., None, :]
     V = V + eye3 * (lam * torch.diagonal(V, dim1=-2, dim2=-1) + eps)[..., None, :]
     return SchurOperands(U=U, Vinv=inv3_spd(V), W=W, gc=gc, gp=gp,
-                         obs_cam=obs_cam, obs_pt=obs_pt, plans=plans)
+                         obs_cam=plans.cam.idx, obs_pt=plans.pt.idx, plans=plans)
 
 
 @mm_f32
@@ -176,13 +167,12 @@ def schur_matvec(op: SchurOperands, x: torch.Tensor, reduce_fn=None) -> torch.Te
     """S x = U x - W V^-1 W' x for x of shape (C, 6); two reductions when
     sharded."""
     red = reduce_fn or _identity
-    num_points = op.Vinv.shape[0]
     Ux = torch.einsum("cij,cj->ci", op.U, x)
     a = torch.einsum("oji,oj->oi", op.W, x[op.obs_cam])            # W' x  (O, 3)
-    b = red(segment_sum(a, op.obs_pt, num_points, _plan(op, "pt")))
+    b = red(segment_sum(a, op.plans.pt))
     c = torch.einsum("pij,pj->pi", op.Vinv, b)                     # V^-1  (P, 3)
     d = torch.einsum("oij,oj->oi", op.W, c[op.obs_pt])             # W     (O, 6)
-    return Ux - red(segment_sum(d, op.obs_cam, op.U.shape[0], _plan(op, "cam")))
+    return Ux - red(segment_sum(d, op.plans.cam))
 
 
 @mm_f32
@@ -191,7 +181,7 @@ def schur_rhs(op: SchurOperands, reduce_fn=None) -> torch.Tensor:
     red = reduce_fn or _identity
     c = torch.einsum("pij,pj->pi", op.Vinv, op.gp)
     d = torch.einsum("oij,oj->oi", op.W, c[op.obs_pt])
-    return op.gc - red(segment_sum(d, op.obs_cam, op.U.shape[0], _plan(op, "cam")))
+    return op.gc - red(segment_sum(d, op.plans.cam))
 
 
 @mm_f32
@@ -199,7 +189,7 @@ def back_substitute_points(op: SchurOperands, dc: torch.Tensor, reduce_fn=None) 
     """dp = V^-1 (gp - W' dc)."""
     red = reduce_fn or _identity
     a = torch.einsum("oji,oj->oi", op.W, dc[op.obs_cam])
-    b = red(segment_sum(a, op.obs_pt, op.Vinv.shape[0], _plan(op, "pt")))
+    b = red(segment_sum(a, op.plans.pt))
     return torch.einsum("pij,pj->pi", op.Vinv, op.gp - b)
 
 
@@ -238,14 +228,10 @@ def conjugate_gradient(
     return x
 
 
-def point_cam_blocks(
-    W: torch.Tensor, obs_cam: torch.Tensor, obs_pt: torch.Tensor,
-    num_cameras: int, num_points: int, plan: Optional[SegmentPlan] = None,
-) -> torch.Tensor:
-    """(P*C, 3, 6) per-(point, camera) sums of W^T; ``plan`` is
-    ``schur_plans``' ``point_cam``."""
-    idx = plan.idx if plan is not None else obs_pt * num_cameras + obs_cam
-    return segment_sum(W.transpose(-1, -2), idx, num_points * num_cameras, plan)
+def point_cam_blocks(W: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+    """(P*C, 3, 6) per-(point, camera) sums of W^T; ``plan`` is the plan of
+    ``obs_pt * C + obs_cam`` over the P * C pairs."""
+    return segment_sum(W.transpose(-1, -2), plan)
 
 
 @mm_f32
@@ -263,17 +249,16 @@ def dense_schur_from_blocks(U: torch.Tensor, Vinv: torch.Tensor, Bflat: torch.Te
 
 
 @mm_f32
-def solve_schur_dense(op: SchurOperands, reduce_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def solve_schur_dense(op: SchurOperands, plan: SegmentPlan,
+                      reduce_fn=None) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact dense Cholesky solve of the reduced camera system (small camera
-    counts). Where S is not positive definite the step is NaN, as the JAX
+    counts), with ``plan`` the (point, camera) pairs' (``point_cam_blocks``).
+    Where S is not positive definite the step is NaN, as the JAX
     ``cho_factor`` gives, and LM rejects it. Sharded, the per-(point, camera)
     blocks are reduced before the quadratic form (S is quadratic in them)."""
     red = reduce_fn or _identity
     C = op.U.shape[0]
-    P = op.Vinv.shape[0]
-    S = dense_schur_from_blocks(op.U, op.Vinv,
-                                red(point_cam_blocks(op.W, op.obs_cam, op.obs_pt, C, P,
-                                                     _plan(op, "point_cam"))))
+    S = dense_schur_from_blocks(op.U, op.Vinv, red(point_cam_blocks(op.W, plan)))
     b = schur_rhs(op, red).reshape(-1)
     L, info = torch.linalg.cholesky_ex(S)
     dc = torch.cholesky_solve(b[:, None], L)[:, 0]

@@ -1,21 +1,22 @@
 // Segment sums over a fixed plan for Hopper (sm_90a): out[s] = sum of the
-// rows x[r] with idx[r] == s, for rows of F = 3, 6, 9, 18 or 36 values in
-// float32 (the BA's precision) or float64 (the sharded BA's float64 check).
+// rows x[r] with idx[r] == s, for rows of F = 1, 3, 6, 9, 16, 18 or 36 values
+// in float32 or float64 (the sharded BA's float64 check).
 //
 // Replaces no TPU kernel: the JAX package leaves jax.ops.segment_sum to XLA's
-// scatter. It was added because the port's index_put_(accumulate=True), the
-// fixed-order sum that bundle adjustment needs on the card, sorts the indices
-// again on every call and then gives each output value one thread that walks
-// every row of its segment in order. Padding puts up to 4,095 zero-weight
-// rows on segment 0, so one thread walked thousands of rows, and LM makes
-// about 45 such calls an iteration, two in every PCG step.
+// scatter. Every segment sum of the port on the card is one launch of this
+// kernel (ba/schur.py::segment_sum): bundle adjustment's blocks (3, 6, 9, 18,
+// 36), motion averaging's 3-vectors and 3x3 blocks, triangulation's 4x4 and
+// 3x3 normal matrices, and the scalar weights, costs and counts (1) of
+// triangulation and the chain refresh. Their index vectors stay fixed through
+// a solve while the sums repeat (about 45 an LM iteration, two a CG step), and
+// padding puts long zero-weight runs on segment 0 (up to 4,095 rows in BA).
 //
-// The plan (ba/schur.py::segment_plan) is built once per LM solve, since the
-// observations' order is fixed there: perm, the rows in segment order (a
-// stable sort of idx); offsets, the S + 1 segment starts, empty segments
-// included; long_segs, the segments of more than LONG_ROWS rows; and group,
-// the lanes given to each other segment (a power of two up to 32, enough for
-// at most ROWS_PER_LANE rows a lane). One launch writes all of out:
+// The plan (ba/schur.py::segment_plan) is built once per index vector and
+// solve: perm, the rows in segment order (a stable sort of idx); offsets, the
+// S + 1 segment starts, empty segments included; long_segs, the segments of
+// more than LONG_ROWS rows; and group, the lanes given to each other segment
+// (a power of two up to 32, enough for at most ROWS_PER_LANE rows a lane).
+// One launch writes all of out:
 //   - blocks [0, num_long) take one long segment each: thread t adds rows
 //     t, t + 256, t + 512, ... of the segment in that order, the warp combines
 //     its lanes by a butterfly of shuffles (xor 16, 8, 4, 2, 1), and thread f
@@ -199,9 +200,11 @@ int launch_width(const void* x, const void* perm, const void* offsets, const voi
                  int num_segments, int num_long, int group, int width, void* out,
                  cudaStream_t s) {
   switch (width) {
+    case 1: return launch<T, 1>(x, perm, offsets, long_segs, num_segments, num_long, group, out, s);
     case 3: return launch<T, 3>(x, perm, offsets, long_segs, num_segments, num_long, group, out, s);
     case 6: return launch<T, 6>(x, perm, offsets, long_segs, num_segments, num_long, group, out, s);
     case 9: return launch<T, 9>(x, perm, offsets, long_segs, num_segments, num_long, group, out, s);
+    case 16: return launch<T, 16>(x, perm, offsets, long_segs, num_segments, num_long, group, out, s);
     case 18: return launch<T, 18>(x, perm, offsets, long_segs, num_segments, num_long, group, out, s);
     case 36: return launch<T, 36>(x, perm, offsets, long_segs, num_segments, num_long, group, out, s);
     default: return (int)cudaErrorInvalidValue;

@@ -8,10 +8,10 @@ carries ``R_ij = R_j R_i^T`` and the translation direction
 The solvers take padded edge lists (weight-0 edges are inert) and keep the
 JAX package's arithmetic: robust weights are normalised by their mean over
 the whole, padded, list, so a caller that pads as the JAX engine does gets
-its numbers. Segment sums are ``ba/schur.py::segment_sum``, deterministic
-on the card but in another order than on the CPU, so card and CPU agree to
-rounding. The JAX ``lax.scan`` sweeps become Python loops with no host
-read; the chordal
+its numbers. Segment sums are ``ba/schur.py::segment_sum`` over plans of
+``edge_i`` and ``edge_j`` built once a call, deterministic on the card but
+in another order than on the CPU, so card and CPU agree to rounding. The
+JAX ``lax.scan`` sweeps become Python loops with no host read; the chordal
 initialisation's conjugate gradients read the residual on the host before
 each step, as the JAX ``while_loop`` tests it.
 """
@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from sfmfromscratch_tpu_torch.ba.schur import conjugate_gradient, segment_sum
+from sfmfromscratch_tpu_torch.ba.schur import conjugate_gradient, segment_plan, segment_sum
 from sfmfromscratch_tpu_torch.geometry.triangulation import two_view_depths
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
 
@@ -70,6 +70,7 @@ def rotation_averaging(
     and re-anchors the gauge to ``R_0 = I``."""
     C = num_cameras if num_cameras else R_init.shape[0]
     ei, ej = edge_i.long(), edge_j.long()
+    plan_i, plan_j = segment_plan(ei, C), segment_plan(ej, C)
     w0 = torch.ones(R_rel.shape[0], dtype=R_rel.dtype, device=R_rel.device) \
         if edge_w is None else edge_w
     R_rel_T = R_rel.transpose(-1, -2)
@@ -80,8 +81,8 @@ def rotation_averaging(
         r = torch.linalg.norm(R_rel @ Ri - Rj, dim=(-2, -1))
         w = w0 / torch.maximum(r, eps_t)
         w = w / torch.clamp_min(torch.mean(w), 1e-9)        # keep the damping ratio fixed
-        S = segment_sum(w[:, None, None] * (R_rel_T @ Rj), ei, C)
-        S = S + segment_sum(w[:, None, None] * (R_rel @ Ri), ej, C)
+        S = segment_sum(w[:, None, None] * (R_rel_T @ Rj), plan_i)
+        S = S + segment_sum(w[:, None, None] * (R_rel @ Ri), plan_j)
         S = S + 0.1 * R
         Rn = _project_so3(S)
         R = Rn @ Rn[0].transpose(-1, -2)[None]
@@ -106,6 +107,7 @@ def chordal_rotation_init(
     (averaging.py:94-166)."""
     C = num_cameras if num_cameras else R_init.shape[0]
     ei, ej = edge_i.long(), edge_j.long()
+    plan_i, plan_j = segment_plan(ei, C), segment_plan(ej, C)
     w0 = torch.ones(R_rel.shape[0], dtype=R_rel.dtype, device=R_rel.device) \
         if edge_w is None else edge_w
     w0 = w0 / torch.clamp_min(torch.mean(w0), 1e-9)
@@ -115,8 +117,8 @@ def chordal_rotation_init(
     def S_op(M, w):
         Mi, Mj = M[ei], M[ej]
         wi = w[:, None, None]
-        S = segment_sum(wi * (Mj - R_rel @ Mi), ej, C)
-        S = S + segment_sum(wi * (Mi - R_rel_T @ Mj), ei, C)
+        S = segment_sum(wi * (Mj - R_rel @ Mi), plan_j)
+        S = S + segment_sum(wi * (Mi - R_rel_T @ Mj), plan_i)
         return _add_row0(S, anchor * M[0])
 
     b = _add_row0(torch.zeros((C, 3, 3), dtype=R_init.dtype, device=R_init.device),
@@ -176,6 +178,7 @@ def translation_averaging(
     pinned at the origin."""
     C = num_cameras if num_cameras else c_init.shape[0]
     ei, ej = edge_i.long(), edge_j.long()
+    plan_i, plan_j = segment_plan(ei, C), segment_plan(ej, C)
     dt, dev = c_init.dtype, c_init.device
     w0 = torch.ones(u_dir.shape[0], dtype=u_dir.dtype, device=u_dir.device) \
         if edge_w is None else edge_w
@@ -189,7 +192,7 @@ def translation_averaging(
         def apply_L(cc, w):
             d = cc[ei] - cc[ej]
             wd = w[:, None] * d
-            out = segment_sum(wd, ei, C) - segment_sum(wd, ej, C)
+            out = segment_sum(wd, plan_i) - segment_sum(wd, plan_j)
             out = _add_row0(out, pin * cc[0])
             return out + 1e-8 * cc
 
@@ -203,7 +206,7 @@ def translation_averaging(
             rn = r / torch.clamp_min(s, 1e-9)
             w = w0 * torch.clamp_max(delta_t / torch.clamp_min(rn, 1e-9), 1.0)
             wsu = (w * s)[:, None] * u_dir
-            b = segment_sum(wsu, ei, C) - segment_sum(wsu, ej, C)
+            b = segment_sum(wsu, plan_i) - segment_sum(wsu, plan_j)
             c_new = _cg_fixed(lambda p: apply_L(p, w), c, b, cg_iters)
             c = c_new - c_new[0][None]
         return c
@@ -213,13 +216,13 @@ def translation_averaging(
 
     def gvec(w):
         wu = w[:, None] * u_dir
-        return segment_sum(wu, ei, C) - segment_sum(wu, ej, C)
+        return segment_sum(wu, plan_i) - segment_sum(wu, plan_j)
 
     def apply_A(cc, w, g):
         d = cc[ei] - cc[ej]
         proj = d - u_dir * torch.sum(u_dir * d, dim=-1, keepdim=True)
         wp = w[:, None] * proj
-        out = segment_sum(wp, ei, C) - segment_sum(wp, ej, C)
+        out = segment_sum(wp, plan_i) - segment_sum(wp, plan_j)
         out = _add_row0(out, pin * cc[0])
         return out + rho * torch.sum(g * cc) * g
 

@@ -9,7 +9,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from sfmfromscratch_tpu_torch.ba.schur import segment_sum
+from sfmfromscratch_tpu_torch.ba.schur import segment_plan, segment_sum
 from sfmfromscratch_tpu_torch.geometry.epipolar import hartley_normalize
 from sfmfromscratch_tpu_torch.ops.smallsvd import nullvec_lstsq
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
@@ -127,6 +127,7 @@ def triangulate_multiview(
     nobs (num_points,))``."""
     O = obs_xy.shape[0]
     cam, pt = obs_cam.long(), obs_pt.long()
+    plan = segment_plan(pt, num_points)
     w = torch.ones((O,), dtype=obs_xy.dtype, device=obs_xy.device) if obs_w is None \
         else obs_w.to(obs_xy.dtype)
     P = P_all[cam]                                           # (O, 3, 4)
@@ -137,8 +138,8 @@ def triangulate_multiview(
     r1 = r1 / torch.clamp_min(torch.linalg.norm(r1, dim=-1, keepdim=True), 1e-9)
     r2 = r2 / torch.clamp_min(torch.linalg.norm(r2, dim=-1, keepdim=True), 1e-9)
     M_obs = r1[:, :, None] * r1[:, None, :] + r2[:, :, None] * r2[:, None, :]
-    M = segment_sum(w[:, None, None] * M_obs, pt, num_points)
-    nobs = segment_sum((w > 0).to(torch.int32), pt, num_points)
+    M = segment_sum(w[:, None, None] * M_obs, plan)
+    nobs = segment_sum((w > 0).to(w.dtype), plan).to(torch.int32)   # exact below 2^24 a track
     M = M + 1e-9 * torch.eye(4, dtype=M.dtype, device=M.device)
     _, V = torch.linalg.eigh(M)                              # ascending eigenvalues
     Xh = V[..., :, 0]
@@ -161,12 +162,12 @@ def triangulate_multiview(
 
     def track_cost(X):
         r, _ = obs_res_jac(X)
-        return segment_sum(torch.sum(r * r, dim=-1), pt, num_points)
+        return segment_sum(torch.sum(r * r, dim=-1), plan)
 
     for _ in range(gn_iters):
         r, J = obs_res_jac(X)
-        JtJ = segment_sum(torch.einsum("oki,okj->oij", J, J), pt, num_points) + eye
-        g = segment_sum(torch.einsum("oki,ok->oi", J, r), pt, num_points)
+        JtJ = segment_sum(torch.einsum("oki,okj->oij", J, J), plan) + eye
+        g = segment_sum(torch.einsum("oki,ok->oi", J, r), plan)
         dx = torch.linalg.solve(JtJ, g[..., None])[..., 0]
         X_new = X - dx
         ok = (torch.all(torch.isfinite(X_new), dim=-1)

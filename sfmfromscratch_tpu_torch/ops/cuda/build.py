@@ -7,7 +7,9 @@ Each source compiles on its own with
 package, with nvcc's report beside it in ``lib<name>-<hash>.log``;
 the hash covers the source text and the flags, so a changed source rebuilds
 and an unchanged one is reused. :func:`build_all` starts one ``nvcc`` per
-source, all at once. Nothing is built when the module is imported.
+source, all at once. :func:`bind` turns a kernel's C entry point into a
+launcher on PyTorch's current stream. Nothing is built when the module is
+imported.
 
     python -m sfmfromscratch_tpu_torch.ops.cuda.build     # build everything
 """
@@ -21,7 +23,9 @@ import shutil
 import subprocess
 import sys
 import threading
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
+
+import torch
 
 _PKG = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 CSRC = os.path.join(_PKG, "csrc")
@@ -120,6 +124,33 @@ def load(name: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(library_path(name))
             _loaded[name] = lib
         return lib
+
+
+def bind(name: str, symbol: str, argtypes: List) -> Callable[..., None]:
+    """C function ``symbol`` of kernel ``name``'s library as a launcher:
+    ``launch(device, *args)`` calls ``symbol(*args, stream)`` with ``device``
+    (a CUDA tensor's ``.device``) current and its current stream, and raises
+    ``RuntimeError`` where the function returns a CUDA error (not 0). The
+    function takes ``argtypes`` and then the stream, and returns an int; the
+    library is built and loaded at the first launch."""
+    fn = None
+
+    def launch(device: torch.device, *args) -> None:
+        nonlocal fn
+        if fn is None:
+            f = getattr(load(name), symbol)
+            f.argtypes = [*argtypes, ctypes.c_void_p]
+            f.restype = ctypes.c_int
+            fn = f
+        if device.index is None or device.index == torch.cuda.current_device():
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(device):
+                err = fn(*args, torch.cuda.current_stream().cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"{symbol} failed with CUDA error {err}")
+
+    return launch
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ import ctypes
 import numpy as np
 import torch
 
+from sfmfromscratch_tpu_torch.ops.cuda.build import bind
 from sfmfromscratch_tpu_torch.ops.harris import harris_response
 
 __all__ = ["harris_response", "harris_response_fused", "gaussian_taps", "cached_taps",
@@ -38,7 +39,10 @@ launches = 0
 
 MAX_TAPS = 31
 
-_fn = None      # sfm_harris_response, argument types set once at load
+_harris = bind("harris", "sfm_harris_response",
+               [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_float,
+                ctypes.c_int, ctypes.c_int, ctypes.c_int])
+
 _taps = {}      # (gaussian_size, sigma) -> (float32 taps, their address)
 
 
@@ -69,20 +73,6 @@ def cached_taps(gaussian_size: int, sigma: float):
     return entry
 
 
-def _kernel():
-    """``sfm_harris_response`` from the built library, argument types set once."""
-    global _fn
-    if _fn is None:
-        from sfmfromscratch_tpu_torch.ops.cuda.build import load
-
-        fn = load("harris").sfm_harris_response
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_float, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
 def _launch(images: torch.Tensor, gaussian_size: int, sigma: float, alpha: float) -> torch.Tensor:
     """Launch the kernel on a (B, H, W) float32 CUDA tensor."""
     global launches
@@ -94,16 +84,8 @@ def _launch(images: torch.Tensor, gaussian_size: int, sigma: float, alpha: float
     out = torch.empty_like(images)
     if images.numel() == 0:
         return out
-    fn = _kernel()
-    args = (images.data_ptr(), out.data_ptr(), taps_ptr, gaussian_size, alpha, B, H, W)
-    dev = images.device.index
-    if dev == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"harris kernel launch failed with CUDA error {err}")
+    _harris(images.device, images.data_ptr(), out.data_ptr(), taps_ptr, gaussian_size, alpha,
+            B, H, W)
     launches += 1
     return out
 

@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from sfmfromscratch_tpu_torch.ops.cuda.build import bind
 from sfmfromscratch_tpu_torch.utils.precision import f32_precision
 
 __all__ = ["match_top2_fused", "match_top2_plain", "launches", "launches_bf16"]
@@ -44,7 +45,7 @@ _SENTINEL = 1e30        # "no candidate yet" (match_kernel.py:49)
 _KC = 32                # the kernel takes D in multiples of 32 (zero-padded here)
 _MAX_SEGMENTS = 16      # most segments a database walk is split into
 
-_fn = None              # sfm_match_top2, argument types set once at load
+_match = bind("match_top2", "sfm_match_top2", [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7)
 
 
 def _norms(d1: torch.Tensor, d2: torch.Tensor, mask2: Optional[torch.Tensor]):
@@ -76,19 +77,6 @@ def match_top2_plain(
     else:
         b2 = torch.full_like(b1, _SENTINEL)
     return b1, b2, order[..., 0].int()
-
-
-def _kernel():
-    """``sfm_match_top2`` from the built library, argument types set once."""
-    global _fn
-    if _fn is None:
-        from sfmfromscratch_tpu_torch.ops.cuda.build import load
-
-        fn = load("match_top2").sfm_match_top2
-        fn.argtypes = [ctypes.c_void_p] * 7 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
@@ -124,17 +112,9 @@ def _launch(d1: torch.Tensor, d2: torch.Tensor, n2sq: torch.Tensor, bf16: bool =
         D += pad
     d1, d2, n2sq = _aligned(d1), _aligned(d2), _aligned(n2sq)
     scratch = torch.empty((3 * B * _MAX_SEGMENTS * n1,), dtype=torch.float32, device=d1.device)
-    fn = _kernel()
-    args = (d1.data_ptr(), d2.data_ptr(), n2sq.data_ptr(), dist1.data_ptr(), dist2.data_ptr(),
-            idx.data_ptr(), scratch.data_ptr(), B, n1, n2, D, int(bf16), 0, _MAX_SEGMENTS)
-    dev = d1.device.index
-    if dev == torch.cuda.current_device():
-        err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    else:
-        with torch.cuda.device(dev):
-            err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"match kernel launch failed with CUDA error {err}")
+    _match(d1.device, d1.data_ptr(), d2.data_ptr(), n2sq.data_ptr(), dist1.data_ptr(),
+           dist2.data_ptr(), idx.data_ptr(), scratch.data_ptr(), B, n1, n2, D, int(bf16), 0,
+           _MAX_SEGMENTS)
     if bf16:
         launches_bf16 += 1
     else:

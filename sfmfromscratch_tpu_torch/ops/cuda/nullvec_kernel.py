@@ -44,6 +44,8 @@ import math
 
 import torch
 
+from sfmfromscratch_tpu_torch.ops.cuda.build import bind
+
 __all__ = ["nullvec_8x9", "nullvec_qr_plain", "NULLVEC_BYTES", "NULLVEC_FLOPS",
            "launches", "systems"]
 
@@ -60,7 +62,8 @@ systems = 0
 NULLVEC_BYTES = 4 * (8 * 9 + 9)
 NULLVEC_FLOPS = sum(4 * x * x + 5 * x + 7 for x in range(1, 9)) + 27   # 1,079
 
-_fn = None      # sfm_nullvec_qr, argument types set once at load
+_nullvec = bind("nullvec_qr", "sfm_nullvec_qr",
+                [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong])
 
 
 def nullvec_qr_plain(A: torch.Tensor) -> torch.Tensor:
@@ -69,28 +72,6 @@ def nullvec_qr_plain(A: torch.Tensor) -> torch.Tensor:
     Q, _ = torch.linalg.qr(A.transpose(-1, -2), mode="complete")
     v = Q[..., :, -1]
     return v / torch.linalg.norm(v, dim=-1, keepdim=True)
-
-
-def _kernel():
-    """``sfm_nullvec_qr`` from the built library, argument types set once."""
-    global _fn
-    if _fn is None:
-        from sfmfromscratch_tpu_torch.ops.cuda.build import load
-
-        fn = load("nullvec_qr").sfm_nullvec_qr
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def _call(fn, args, dev: torch.device) -> int:
-    """``fn(*args, stream)`` on ``dev``'s current stream, with ``dev`` the
-    current device."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def _launch(A: torch.Tensor) -> torch.Tensor:
@@ -107,9 +88,7 @@ def _launch(A: torch.Tensor) -> torch.Tensor:
     if count == 0:
         return out
     A = A.contiguous()
-    err = _call(_kernel(), (A.data_ptr(), out.data_ptr(), count), A.device)
-    if err != 0:
-        raise RuntimeError(f"nullvec kernel launch failed with CUDA error {err}")
+    _nullvec(A.device, A.data_ptr(), out.data_ptr(), count)
     launches += 1
     systems += count
     return out

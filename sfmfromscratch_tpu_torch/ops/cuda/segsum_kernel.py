@@ -2,21 +2,22 @@
 ``csrc/segment_sum.cu``.
 
 Replaces no Pallas kernel: the JAX package leaves ``jax.ops.segment_sum`` to
-XLA's scatter. On the card the port's fixed-order segment sum was
-``index_put_(accumulate=True)``, which sorts the indices on every call and
-walks each segment on one thread; bundle adjustment makes about 45 such
-calls an LM iteration over indices that do not change during the solve. The
+XLA's scatter. Sums on the card add in a fixed order, never with atomics;
+their index vectors stay fixed through a solve while the sums repeat, so the
 kernel takes the plan that ``ba/schur.py::segment_plan`` builds once per
-solve and writes every segment's sum in one launch, without atomics, in an
-order that the plan fixes (``csrc/segment_sum.cu`` has the design).
+index vector and writes every segment's sum in one launch, in an order that
+the plan fixes (``csrc/segment_sum.cu`` has the design).
 
 Bound on the card: the rows, their places in the plan and the sums, moved
 once, at 3.35 TB/s (``segsum_bytes``); a BA call at ``kf150_video``'s shapes
-moves under 1 MB, so the launch sets its time. Rows are float32, the BA's
+moves under 1 MB, so the launch sets its time. Rows are float32, the port's
 precision, or float64, which the sharded BA's check on the card solves in.
 
-Callers: ``ba/schur.py::segment_sum`` when it is given a plan, which every
-LM solve (``ba/lm_core.py::lm_run``) gives to each of its segment sums.
+Callers: ``ba/schur.py::segment_sum``, every segment sum of the port, each
+with its plan: bundle adjustment (``ba/lm_core.py::lm_run`` plans once per
+solve), motion averaging (``geometry/averaging.py``), triangulation
+(``geometry/triangulation.py::triangulate_multiview``) and the chain
+refresh's scale solve (``pipeline/chain_refresh.py::_solve_scales_cg``).
 
 ``segsum_plain`` is the plain PyTorch version (``index_add_``): the wrapper
 runs it for CPU tensors, launches the kernel for CUDA tensors, and never
@@ -29,6 +30,8 @@ import ctypes
 
 import torch
 
+from sfmfromscratch_tpu_torch.ops.cuda.build import bind
+
 __all__ = ["segment_sum_planned", "segsum_plain", "segsum_bytes", "WIDTHS", "LONG_ROWS",
            "ROWS_PER_LANE", "launches", "rows"]
 
@@ -37,16 +40,17 @@ __all__ = ["segment_sum_planned", "segsum_plain", "segsum_bytes", "WIDTHS", "LON
 launches = 0
 rows = 0
 
-# Row widths the kernel is built for: the BA's 3-, 6-, 3x3-, 3x6- and
-# 6x6-blocks.
-WIDTHS = (3, 6, 9, 18, 36)
+# Row widths the kernel is built for: scalars, the 3-, 6-, 3x3-, 4x4-, 3x6-
+# and 6x6-blocks.
+WIDTHS = (1, 3, 6, 9, 16, 18, 36)
 # Segments of more than LONG_ROWS rows get a block of 256 threads each (the
 # kernel's constant of the same name); every other segment gets a group of
 # lanes, enough for at most ROWS_PER_LANE rows a lane.
 LONG_ROWS = 256
 ROWS_PER_LANE = 8
 
-_fn = None      # sfm_segment_sum, argument types set once at load
+_segment_sum = bind("segment_sum", "sfm_segment_sum",
+                    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 
 def segsum_bytes(num_rows: int, width: int, num_segments: int) -> int:
@@ -58,30 +62,6 @@ def segsum_bytes(num_rows: int, width: int, num_segments: int) -> int:
 def segsum_plain(x: torch.Tensor, idx: torch.Tensor, num_segments: int) -> torch.Tensor:
     """(S, F) sums of the rows of ``x`` (O, F) by segment ``idx`` (O,)."""
     return x.new_zeros((num_segments,) + tuple(x.shape[1:])).index_add_(0, idx, x)
-
-
-def _kernel():
-    """``sfm_segment_sum`` from the built library, argument types set once."""
-    global _fn
-    if _fn is None:
-        from sfmfromscratch_tpu_torch.ops.cuda.build import load
-
-        fn = load("segment_sum").sfm_segment_sum
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                       ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                       ctypes.c_void_p, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        _fn = fn
-    return _fn
-
-
-def _call(fn, args, dev: torch.device) -> int:
-    """``fn(*args, stream)`` on ``dev``'s current stream, with ``dev`` the
-    current device."""
-    if dev.index is None or dev.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(dev):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
 
 
 def _launch(x: torch.Tensor, plan) -> torch.Tensor:
@@ -107,11 +87,9 @@ def _launch(x: torch.Tensor, plan) -> torch.Tensor:
     if not (1 <= group <= 32 and group & (group - 1) == 0):
         raise ValueError(f"segment-sum plan: group {group} is not a power of two up to 32")
     out = torch.empty((S, x.shape[1]), dtype=x.dtype, device=x.device)
-    err = _call(_kernel(), (x.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
-                            plan.long_segs.data_ptr(), S, plan.long_segs.numel(), group,
-                            x.shape[1], x.element_size(), out.data_ptr()), x.device)
-    if err != 0:
-        raise RuntimeError(f"segment-sum kernel launch failed with CUDA error {err}")
+    _segment_sum(x.device, x.data_ptr(), plan.perm.data_ptr(), plan.offsets.data_ptr(),
+                 plan.long_segs.data_ptr(), S, plan.long_segs.numel(), group, x.shape[1],
+                 x.element_size(), out.data_ptr())
     launches += 1
     rows += x.shape[0]
     return out

@@ -20,7 +20,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from sfmfromscratch_tpu_torch.ba.schur import segment_sum
+from sfmfromscratch_tpu_torch.ba.schur import segment_plan, segment_sum
 from sfmfromscratch_tpu_torch.geometry.averaging import (
     chain_initial_centers,
     chordal_rotation_init,
@@ -182,14 +182,15 @@ def _solve_scales_cg(eidx, gidx, logz, E: int, G: int, cg_iters: int = 400,
     host before each step; a degenerate search direction freezes the
     iterate."""
     eidx, gidx = eidx.long(), gidx.long()
+    plan_g, plan_e = segment_plan(gidx, G), segment_plan(eidx, E)
 
     def solve_weighted(wf, x0):
-        sw_g = torch.clamp_min(segment_sum(wf, gidx, G), 1e-9)
+        sw_g = torch.clamp_min(segment_sum(wf, plan_g), 1e-9)
 
         def op(x, z):
             s = x[eidx] + z
-            mu = segment_sum(wf * s, gidx, G) / sw_g
-            return segment_sum(wf * (s - mu[gidx]), eidx, E)
+            mu = segment_sum(wf * s, plan_g) / sw_g
+            return segment_sum(wf * (s - mu[gidx]), plan_e)
 
         b = -op(torch.zeros(E, dtype=logz.dtype, device=logz.device), logz)
         b = b - torch.mean(b)
@@ -222,8 +223,8 @@ def _solve_scales_cg(eidx, gidx, logz, E: int, G: int, cg_iters: int = 400,
     ones = torch.ones_like(logz)
     for _ in range(irls_rounds):
         s = x[eidx] + logz
-        sw_g = torch.clamp_min(segment_sum(ones, gidx, G), 1.0)
-        mu = segment_sum(s, gidx, G) / sw_g
+        sw_g = torch.clamp_min(segment_sum(ones, plan_g), 1.0)
+        mu = segment_sum(s, plan_g) / sw_g
         r = torch.abs(s - mu[gidx])
         delta = torch.clamp_min(2.0 * 1.4826 * _median(r), 0.05)
         wf = torch.clamp_max(delta / torch.clamp_min(r, 1e-9), 1.0)

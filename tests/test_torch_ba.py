@@ -81,8 +81,9 @@ def _operands(jp, tp, lam=1e-3):
                                      jp.num_points, jnp.asarray(lam, jnp.float32))
     # Both sides from the same blocks, so the assembly alone is compared.
     top = tschur.build_normal_blocks(torch.as_tensor(np.array(Jc)), torch.as_tensor(np.array(Jp)),
-                                     torch.as_tensor(np.array(r)), tp.obs_cam, tp.obs_pt,
-                                     tp.num_cameras, tp.num_points, torch.tensor(lam))
+                                     torch.as_tensor(np.array(r)),
+                                     tschur.schur_plans(tp.obs_cam, tp.obs_pt, tp.num_cameras,
+                                                        tp.num_points), torch.tensor(lam))
     return jop, top
 
 
@@ -104,7 +105,9 @@ def test_schur_solvers_match_each_other_and_jax():
     matrix-free matvec equals the dense S to 1e-4 relative."""
     jp, tp, _, _ = _problems(perturb=0.05)
     jop, top = _operands(jp, tp, lam=1e-2)
-    dc_d, dp_d = tschur.solve_schur_dense(top)
+    C, P = tp.num_cameras, tp.num_points
+    point_cam = tschur.segment_plan(tp.obs_pt * C + tp.obs_cam, P * C)
+    dc_d, dp_d = tschur.solve_schur_dense(top, point_cam)
     dc_c, dp_c = tschur.solve_schur(top, cg_iters=200)
     jdc_d, jdp_d = jschur.solve_schur_dense(jop)
     jdc_c, jdp_c = jschur.solve_schur(jop, cg_iters=200)
@@ -115,9 +118,7 @@ def test_schur_solvers_match_each_other_and_jax():
     np.testing.assert_allclose(_np(dc_d), _np(jdc_d), atol=1e-3 * sc)
     np.testing.assert_allclose(_np(dp_d), _np(jdp_d), atol=1e-3 * sp)
     np.testing.assert_allclose(_np(dc_c), _np(jdc_c), atol=1e-3 * sc)
-    C = tp.num_cameras
-    S = tschur.dense_schur_from_blocks(top.U, top.Vinv, tschur.point_cam_blocks(
-        top.W, top.obs_cam, top.obs_pt, C, tp.num_points))
+    S = tschur.dense_schur_from_blocks(top.U, top.Vinv, tschur.point_cam_blocks(top.W, point_cam))
     x = torch.as_tensor(np.random.default_rng(40).standard_normal((C, 6)).astype(np.float32))
     mv = _np(tschur.schur_matvec(top, x)).reshape(-1)
     np.testing.assert_allclose(mv, _np(S @ x.reshape(-1)), atol=1e-4 * np.abs(mv).max())
@@ -186,6 +187,7 @@ def test_segment_sum_matches_numpy_and_repeats():
     ref = np.zeros((37, 6, 3))
     np.add.at(ref, idx, x.astype(np.float64))
     xt, it = torch.from_numpy(x), torch.from_numpy(idx)
-    out = tschur.segment_sum(xt, it, 37)
+    plan = tschur.segment_plan(it, 37)
+    out = tschur.segment_sum(xt, plan)
     np.testing.assert_allclose(_np(out), ref, atol=1e-5)
-    assert torch.equal(out, tschur.segment_sum(xt, it, 37))
+    assert torch.equal(out, tschur.segment_sum(xt, plan))

@@ -165,7 +165,8 @@ def test_harris_launch_rejects_sizes_before_building(G, monkeypatch):
 
     monkeypatch.setattr(build, "load", no_build)
     monkeypatch.setattr(build, "build_all", no_build)
-    monkeypatch.setattr(HK, "_fn", None)
+    # A fresh binding, not yet loaded: a launch would reach build.load.
+    monkeypatch.setattr(HK, "_harris", build.bind("harris", "sfm_harris_response", []))
     with pytest.raises(ValueError, match="gaussian_size"):
         HK._launch(torch.zeros(1, 8, 8), G, 6.0, 0.05)
     with pytest.raises(ValueError, match="gaussian_size"):

@@ -10,11 +10,13 @@
 """
 
 import ast
+import ctypes
 import os
 import pathlib
 import shutil
 import subprocess
 import sys
+import types
 
 import numpy as np
 import pytest
@@ -722,17 +724,18 @@ def test_wrappers_dispatch_by_device(monkeypatch):
     # The launch, faked: one (A, S, 8, 9) call is one launch of A * S systems.
     calls = []
 
-    def fake_kernel(a_ptr, out_ptr, count, stream):
+    def fake_nullvec(device, a_ptr, out_ptr, count):
         calls.append(count)
-        return 0
 
-    monkeypatch.setattr(NK, "_kernel", lambda: fake_kernel)
-    monkeypatch.setattr(NK, "_call", lambda fn, args, dev: fn(*args, 0))
+    def failing(*args):
+        raise RuntimeError("sfm_nullvec_qr failed with CUDA error 1")
+
+    monkeypatch.setattr(NK, "_nullvec", fake_nullvec)
     out = NK._launch(A.transpose(0, 1))          # non-contiguous: copied, then launched
     assert calls == [15] and tuple(out.shape) == (5, 3, 9)
     assert (NK.launches, NK.systems) == (before[0] + 1, before[1] + 15)
     assert NK._launch(torch.zeros(0, 4, 8, 9)).shape == (0, 4, 9) and calls == [15]
-    monkeypatch.setattr(NK, "_kernel", lambda: lambda *a: 1)
+    monkeypatch.setattr(NK, "_nullvec", failing)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         NK._launch(A)
     assert NK.launches == before[0] + 1
@@ -776,6 +779,59 @@ def test_nullvec_lstsq_takes_the_wrapper_at_8x9_only(m, n, to_wrapper, monkeypat
     norm = torch.linalg.norm(A, dim=(-2, -1))
     assert torch.all(torch.linalg.norm(A @ v[..., None], dim=(-2, -1))
                      <= smin * (1 + 1e-4) + 1e-5 * norm)
+
+
+def test_bind_loads_once_and_raises_on_a_cuda_error(monkeypatch):
+    """A bound kernel loads its library at its first launch only, declares
+    the C function's argument types with the stream last and an int
+    result, launches on the device's current stream with that device
+    current, and raises on a nonzero return. Every wrapper binds through
+    it."""
+    loads, calls, entered, ret = [], [], [], [0]
+
+    def sfm_fake(*args):
+        calls.append(args)
+        return ret[0]
+
+    class Entered:
+        def __init__(self, dev):
+            self.dev = dev
+
+        def __enter__(self):
+            entered.append(self.dev)
+
+        def __exit__(self, *exc):
+            return False
+
+    monkeypatch.setattr(build, "load", lambda name: loads.append(name) or
+                        types.SimpleNamespace(sfm_fake=sfm_fake))
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda: types.SimpleNamespace(cuda_stream=77))
+    monkeypatch.setattr(torch.cuda, "device", Entered)
+    launch = build.bind("fake", "sfm_fake", [ctypes.c_void_p, ctypes.c_int])
+    assert loads == []
+    launch(torch.device("cuda", 0), 5, 6)
+    launch(torch.device("cuda"), 7, 8)
+    launch(torch.device("cuda", 1), 9, 10)
+    assert loads == ["fake"] and calls == [(5, 6, 77), (7, 8, 77), (9, 10, 77)]
+    assert entered == [torch.device("cuda", 1)]
+    assert sfm_fake.argtypes == [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p]
+    assert sfm_fake.restype is ctypes.c_int
+    ret[0] = 700
+    with pytest.raises(RuntimeError, match="sfm_fake failed with CUDA error 700"):
+        launch(torch.device("cuda", 0), 1, 2)
+    for wrapper in ("harris_kernel", "match_kernel", "nullvec_kernel", "segsum_kernel"):
+        text = (PORT / "ops" / "cuda" / f"{wrapper}.py").read_text()
+        assert text.count(" = bind(") == 1 and "cuda_stream" not in text, wrapper
+
+
+def test_port_sums_take_no_accumulating_index_put():
+    """Sums on the card add in a fixed order, never with atomics: no
+    ``accumulate=True`` anywhere in the port; every segment sum takes a
+    plan (``ba/schur.py::segment_sum``)."""
+    files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu")]
+    assert PORT / "ba" / "schur.py" in files and PORT / "csrc" / "segment_sum.cu" in files
+    assert [p for p in files if "accumulate=True" in p.read_text()] == []
 
 
 def _fake_nvcc(tmp_path, ok: bool) -> str:

@@ -1,11 +1,13 @@
-"""The planned segment sums of bundle adjustment, on the CPU.
+"""The port's planned segment sums, on the CPU.
 
-``ba/schur.py::segment_plan`` orders each index vector once per LM solve;
-``ops/cuda/segsum_kernel.py`` launches ``csrc/segment_sum.cu`` over the plan
-for CUDA tensors and adds with ``index_add_`` for CPU tensors. The kernel
-runs only on the card (``chip_smoke.py``'s segsum phase); here the plan, the
-walk over it that the kernel makes, the wrapper's checks and counters (with
-the launch faked) and the plans' use in ``lm_run``.
+``ba/schur.py::segment_plan`` orders each index vector once for as long as
+it stays fixed (an LM solve, an averaging, triangulation or scale-solve
+call); ``ops/cuda/segsum_kernel.py`` launches ``csrc/segment_sum.cu`` over
+the plan for CUDA tensors and adds with ``index_add_`` for CPU tensors. The
+kernel runs only on the card (``chip_smoke.py``'s segsum phase); here the
+plan, the walk over it that the kernel makes, the wrapper's checks and
+counters (with the launch faked) and the plans' use in ``lm_run`` and the
+other callers.
 """
 
 import numpy as np
@@ -14,7 +16,9 @@ import torch
 
 from sfmfromscratch_tpu_torch.ba import lm_core, schur
 from sfmfromscratch_tpu_torch.ba.problem import make_problem, pad_problem
+from sfmfromscratch_tpu_torch.geometry import averaging, triangulation
 from sfmfromscratch_tpu_torch.ops.cuda import segsum_kernel as SK
+from sfmfromscratch_tpu_torch.pipeline import chain_refresh
 from sfmfromscratch_tpu_torch.utils import profiling
 
 torch.set_num_threads(1)   # tier-1 runs several pytest workers at once
@@ -150,18 +154,15 @@ def test_segment_sum_with_plan_is_index_add_on_cpu(width):
     tolerance of it: 2 n 2^-24 of the segment's sum of absolute values."""
     rng = np.random.default_rng(width)
     idx = _padded_idx(rng, 700, 60, 4095)
-    shape = {3: (3,), 6: (6,), 9: (3, 3), 18: (3, 6), 36: (6, 6)}[width]
+    shape = {1: (), 3: (3,), 6: (6,), 9: (3, 3), 16: (4, 4), 18: (3, 6), 36: (6, 6)}[width]
     x = torch.from_numpy(rng.standard_normal((idx.shape[0],) + shape).astype(np.float32))
     plan = schur.segment_plan(idx, 60)
-    got = schur.segment_sum(x, idx, 60, plan)
-    assert torch.equal(got, schur.segment_sum(x, idx, 60))
+    got = schur.segment_sum(x, plan)
     assert torch.equal(got, torch.zeros((60,) + shape).index_add_(0, idx, x))
     emu = _emulate_kernel(x.reshape(-1, width), plan).reshape(got.shape)
     absum = torch.zeros((60,) + shape, dtype=torch.float64).index_add_(0, idx, x.double().abs())
     n = torch.bincount(idx, minlength=60).double().reshape((60,) + (1,) * len(shape))
     assert bool(((emu.double() - got.double()).abs() <= 2 * n * 2.0 ** -24 * absum).all())
-    with pytest.raises(ValueError, match="a plan of 60 segments for 61"):
-        schur.segment_sum(x, idx, 61, plan)
 
 
 def test_segsum_wrapper_dispatch_checks_and_counters(monkeypatch):
@@ -190,20 +191,22 @@ def test_segsum_wrapper_dispatch_checks_and_counters(monkeypatch):
 
     calls = []
 
-    def fake_kernel(*args):
+    def fake_segment_sum(device, *args):
         calls.append(args[4:9])        # segments, long segments, group, width, value bytes
-        return 0
 
-    monkeypatch.setattr(SK, "_kernel", lambda: fake_kernel)
-    monkeypatch.setattr(SK, "_call", lambda fn, args, dev: fn(*args, 0))
+    def failing(*args):
+        raise RuntimeError("sfm_segment_sum failed with CUDA error 1")
+
+    monkeypatch.setattr(SK, "_segment_sum", fake_segment_sum)
     out = SK._launch(x, plan)
     assert calls == [(4, 0, 1, 6, 4)] and tuple(out.shape) == (4, 6)
     assert SK._launch(x.double(), plan).dtype == torch.float64 and calls[-1] == (4, 0, 1, 6, 8)
-    assert (SK.launches, SK.rows) == (before[0] + 2, before[1] + 12)
-    monkeypatch.setattr(SK, "_kernel", lambda: lambda *a: 1)
+    assert SK._launch(x[:, :1].contiguous(), plan).shape == (4, 1) and calls[-1] == (4, 0, 1, 1, 4)
+    assert (SK.launches, SK.rows) == (before[0] + 3, before[1] + 18)
+    monkeypatch.setattr(SK, "_segment_sum", failing)
     with pytest.raises(RuntimeError, match="CUDA error 1"):
         SK._launch(x, plan)
-    assert SK.launches == before[0] + 2
+    assert SK.launches == before[0] + 3
 
 
 def _scene(num_cams, num_pts, seed=0):
@@ -245,11 +248,12 @@ def test_lm_run_plans_once_and_counts(dense, selfcal, plans, monkeypatch):
         built.append(n)
         return plan_fn(idx, n)
 
-    def recording_sum(x, idx, n, plan=None):
-        sums.append(plan is not None)
-        return sum_fn(x, idx, n, plan)
+    def recording_sum(x, plan):
+        sums.append(isinstance(plan, schur.SegmentPlan))
+        return sum_fn(x, plan)
 
     monkeypatch.setattr(schur, "segment_plan", counting_plan)
+    monkeypatch.setattr(lm_core, "segment_plan", counting_plan)
     monkeypatch.setattr(schur, "segment_sum", recording_sum)
     monkeypatch.setattr(lm_core, "segment_sum", recording_sum)
     p = _scene(5, 40)
@@ -265,3 +269,130 @@ def test_lm_run_plans_once_and_counts(dense, selfcal, plans, monkeypatch):
     span = next(s for s in timer.spans if s.name == "ba")
     assert span.counters == {"segsum_plans": plans, "lm_iters": 4, "segsum_launches": len(sums)}
     assert float(out.final_cost) < float(out.initial_cost)
+
+
+def _rotations(rng, n):
+    q, r = np.linalg.qr(rng.standard_normal((n, 3, 3)))
+    q = q * np.sign(np.diagonal(r, axis1=1, axis2=2))[:, None, :]
+    return q * np.sign(np.linalg.det(q))[:, None, None]
+
+
+def _view_graph(C=6, pad=10):
+    """A noisy view graph of ``C`` cameras, its edge list padded as the
+    global engine pads it (weight-0 edges (0, 0), identity rotations)."""
+    rng = np.random.default_rng(21)
+    R = _rotations(rng, C)
+    c = rng.standard_normal((C, 3))
+    ei = np.array([i for k in (1, 2) for i in range(C)])
+    ej = (ei + np.repeat([1, 2], C)) % C
+    noise = np.eye(3) + 0.02 * rng.standard_normal((len(ei), 3, 3))
+    R_rel = np.einsum("eij,ekj,ekl->eil", R[ej], R[ei], noise)      # R_j R_i^T, perturbed
+    u = c[ei] - c[ej] + 0.05 * rng.standard_normal((len(ei), 3))
+
+    def padded(a, fill, dtype=torch.float32):
+        a = np.concatenate([a, np.broadcast_to(np.asarray(fill, a.dtype), (pad,) + a.shape[1:])])
+        return torch.as_tensor(a, dtype=dtype)
+
+    return dict(C=C, R_rel=padded(R_rel, np.eye(3)), edge_i=padded(ei, 0, torch.int64),
+                edge_j=padded(ej, 0, torch.int64), edge_w=padded(np.ones(len(ei)), 0.0),
+                u_dir=padded(u / np.linalg.norm(u, axis=1, keepdims=True), 0.0),
+                edge_s=padded(np.linalg.norm(u, axis=1), 1.0),
+                R_init=torch.as_tensor(R + 0.05 * rng.standard_normal(R.shape), dtype=torch.float32),
+                c_init=torch.as_tensor(c + 0.1 * rng.standard_normal(c.shape), dtype=torch.float32))
+
+
+def _caller(name):
+    """The module of caller ``name``, a call of it on a small problem, and
+    the (index vector, segments) it must plan, in order."""
+    if name == "_solve_scales_cg":
+        rng = np.random.default_rng(5)
+        E, G = 8, 10
+        eidx = torch.as_tensor(np.concatenate([np.arange(E), rng.integers(0, E, 32)]))
+        gidx = torch.as_tensor(np.concatenate([np.arange(G), rng.integers(0, G, 30)]))
+        logz = torch.as_tensor(rng.standard_normal(eidx.shape[0]), dtype=torch.float32)
+        return (chain_refresh,
+                lambda: chain_refresh._solve_scales_cg(eidx, gidx, logz, E, G, cg_iters=30,
+                                                       irls_rounds=2),
+                [(gidx, G), (eidx, E)])
+    if name == "triangulate_multiview":
+        # 12 tracks seen by 4 cameras, then 9 zero-weight rows on the last
+        # track, as the global engine pads them; track 3 is seen once.
+        rng = np.random.default_rng(7)
+        C, T, pad = 4, 12, 9
+        K = np.array([[500.0, 0, 320], [0, 500.0, 240], [0, 0, 1]])
+        P = np.stack([K @ np.hstack([np.eye(3), [[0.3 * c], [0.0], [0.0]]]) for c in range(C)])
+        X = np.stack([rng.uniform(-1, 1, T), rng.uniform(-1, 1, T), rng.uniform(4, 6, T)], 1)
+        obs_cam = np.concatenate([np.arange(C).repeat(T), np.zeros(pad, np.int64)])
+        obs_pt = np.concatenate([np.tile(np.arange(T), C), np.full(pad, T - 1)])
+        h = np.einsum("oij,oj->oi", P[obs_cam], np.hstack([X[obs_pt], np.ones((len(obs_pt), 1))]))
+        xy = h[:, :2] / h[:, 2:] + 0.5 * rng.standard_normal((len(obs_pt), 2))
+        w = np.r_[np.ones(C * T), np.zeros(pad)]
+        w[[T + 3, 2 * T + 3, 3 * T + 3]] = 0.0
+        pt = torch.as_tensor(obs_pt)
+        return (triangulation,
+                lambda: triangulation.triangulate_multiview(
+                    torch.as_tensor(P, dtype=torch.float32), torch.as_tensor(obs_cam), pt,
+                    torch.as_tensor(xy, dtype=torch.float32), num_points=T,
+                    obs_w=torch.as_tensor(w, dtype=torch.float32), gn_iters=3),
+                [(pt, T)])
+    g = _view_graph()
+    C, ei, ej, w = g["C"], g["edge_i"], g["edge_j"], g["edge_w"]
+    call = {
+        "chordal_rotation_init": lambda: averaging.chordal_rotation_init(
+            g["R_rel"], ei, ej, g["R_init"], edge_w=w, num_cameras=C, cg_iters=20),
+        "rotation_averaging": lambda: averaging.rotation_averaging(
+            g["R_rel"], ei, ej, g["R_init"], edge_w=w, num_cameras=C, num_iters=6),
+        "translation_averaging": lambda: averaging.translation_averaging(
+            g["u_dir"], ei, ej, g["c_init"], edge_w=w, num_cameras=C, num_iters=4, cg_iters=12),
+        "translation_averaging(edge_s)": lambda: averaging.translation_averaging(
+            g["u_dir"], ei, ej, g["c_init"], edge_w=w, num_cameras=C, num_iters=4, cg_iters=12,
+            edge_s=g["edge_s"]),
+    }[name]
+    return averaging, call, [(ei, C), (ej, C)]
+
+
+@pytest.mark.parametrize("name", ["chordal_rotation_init", "rotation_averaging",
+                                  "translation_averaging", "translation_averaging(edge_s)",
+                                  "triangulate_multiview", "_solve_scales_cg"])
+def test_callers_plan_each_index_vector_once(name, monkeypatch):
+    """Averaging (both translation solvers), triangulation and the chain
+    refresh's scale solve plan each of their index vectors once a call and
+    hand one of those plans to every segment sum; on the CPU their output
+    is, bit for bit, what they give with each sum a sequential ``np.add.at``
+    over the index vector in the rows' type (``index_add_``'s order), and
+    triangulation's counts are the integer counts of weighted rows."""
+    module, call, want = _caller(name)
+    built, plans, sums = [], [], []
+
+    def counting_plan(idx, n):
+        built.append((idx, n))
+        plans.append(schur.segment_plan(idx, n))
+        return plans[-1]
+
+    def recording_sum(x, plan):
+        sums.append(any(plan is p for p in plans))
+        return schur.segment_sum(x, plan)
+
+    with monkeypatch.context() as m:
+        m.setattr(module, "segment_plan", counting_plan)
+        m.setattr(module, "segment_sum", recording_sum)
+        got = call()
+    assert len(built) == len(want)
+    assert all(n == wn and torch.equal(idx, widx) for (idx, n), (widx, wn) in zip(built, want))
+    assert len(sums) >= 4 and all(sums)
+
+    def sequential_sum(x, plan):
+        idx, n = plan
+        out = np.zeros((n,) + tuple(x.shape[1:]), x.numpy().dtype)
+        np.add.at(out, idx.numpy(), x.numpy())
+        return torch.from_numpy(out)
+
+    with monkeypatch.context() as m:
+        m.setattr(module, "segment_plan", lambda idx, n: (idx, n))
+        m.setattr(module, "segment_sum", sequential_sum)
+        ref = call()
+    got, ref = (got, ref) if isinstance(got, tuple) else ((got,), (ref,))
+    for a, b in zip(got, ref, strict=True):
+        assert a.dtype == b.dtype and torch.equal(a, b)
+    if name == "triangulate_multiview":
+        assert got[1].dtype == torch.int32 and got[1].tolist() == [4, 4, 4, 1] + [4] * 8

@@ -94,7 +94,8 @@ def test_solve_bordered_one_step_matches_jax(problems):
     jdc, jdp, jds = jcore._solve_bordered(jop, Js, Jc, Jp, r, jnp.float32(lam), iters,
                                           jnp.float32(0.0), lambda x: x, jp.cam_fixed)
     t = lambda a: torch.as_tensor(np.array(a))
-    top = tschur.build_normal_blocks(t(Jc), t(Jp), t(r), tp.obs_cam, tp.obs_pt, C, P,
+    top = tschur.build_normal_blocks(t(Jc), t(Jp), t(r),
+                                     tschur.schur_plans(tp.obs_cam, tp.obs_pt, C, P),
                                      torch.tensor(lam))
     tdc, tdp, tds = tcore._solve_bordered(top, t(Js), t(Jc), t(Jp), t(r), torch.tensor(lam),
                                           iters, torch.tensor(0.0), tp.cam_fixed)

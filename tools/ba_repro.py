@@ -4,10 +4,10 @@ Builds the kernels, renders ``chip_smoke.py``'s 10-view bench sequence and
 runs ``SfmEngine`` on it at the bench configuration ``--runs`` times, then
 solves the last run's final BA problem ``--runs`` more times on the card
 and once on the CPU. It does this for three versions of
-``ba/schur.py::segment_sum`` on the card: "planned" (as it is: BA's sums in
-one launch of the segment-sum kernel over the plans of each solve, in a
-fixed order), "sorted" (the sorted, fixed-order ``index_put_(accumulate=True)``
-it replaced) and "atomic" (the ``index_add_`` that one replaced). With
+``ba/schur.py::segment_sum`` on the card: "planned" (as it is: every sum in
+one launch of the segment-sum kernel over its plan, in a fixed order),
+"sorted" (the sorted, fixed-order ``index_put_(accumulate=True)`` that the
+kernel replaced) and "atomic" (the ``index_add_`` that one replaced). With
 ``--workload <cell> --seed <n>`` the engine runs are a benchmark cell's job 0
 (``portbench/``, after its warm-up job), and the re-solved problem is that
 job's last BA problem. Prints the card's name and power limit, then one JSON
@@ -36,14 +36,14 @@ sys.path.insert(0, os.path.join(ROOT, "tools"))
 
 # The replaced versions, with segment_sum's signature; their code takes the
 # place of segment_sum's own, so they read nothing outside their arguments.
-def _atomic_segment_sum(x, idx, num_segments, plan=None):
-    out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
-    return out.index_add_(0, idx, x)
+def _atomic_segment_sum(x, plan):
+    out = x.new_zeros((plan.offsets.shape[0] - 1,) + tuple(x.shape[1:]))
+    return out.index_add_(0, plan.idx, x)
 
 
-def _sorted_segment_sum(x, idx, num_segments, plan=None):
-    out = x.new_zeros((num_segments,) + tuple(x.shape[1:]))
-    return out.index_put_((idx,), x, accumulate=True)
+def _sorted_segment_sum(x, plan):
+    out = x.new_zeros((plan.offsets.shape[0] - 1,) + tuple(x.shape[1:]))
+    return out.index_put_((plan.idx,), x, accumulate=True)
 
 
 def main(argv=None) -> int:

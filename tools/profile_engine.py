@@ -7,12 +7,14 @@ Builds the port's kernels, warms the engine at the bench configuration
    fetches) and keeps each run's ``stage_times`` (each stage ends at a
    device synchronize), the null-vector kernel's launches and systems
    (its wrapper's counters), and the segment-sum kernel's launches beside
-   the planned sums its spans counted (``segsum_launches``);
+   the planned sums and the plans its spans counted (``segsum_launches``,
+   ``segsum_plans``);
 2. traces the first timed run's scene and seed once more with
    ``torch.profiler`` (CUDA activity): the kernels with the most device
    time, the device's busy time (the union of its kernel and copy
-   intervals), its idle share of the run's wall time and the device-to-host
-   copies; and, from the engine's spans (``eng.spans``, on the profiler's
+   intervals), its idle share of the run's wall time, the device-to-host
+   copies and the device time of ``index_put_``'s
+   ``indexing_backward_kernel*``; and, from the engine's spans (``eng.spans``, on the profiler's
    clock), each top-level stage's device busy time, the share of the busy
    time inside the top-level stages, and the span readings below.
 
@@ -34,8 +36,8 @@ Span readings (``span_readings``; None where the engine records no spans):
 ``<stage>_idle_share``, 100 (1 - device busy time inside the traced run's
 spans of the stage / the length of the same spans in the first timed run,
 the same scene and seed unprofiled), matched by name and order, for
-``filter``, ``chain`` (``bootstrap`` and ``chain``), ``ba``, ``keyframes``
-and ``register``;
+``filter``, ``chain`` (``bootstrap`` and ``chain``), ``ba``, ``keyframes``,
+``register`` and ``motion_averaging``;
 ``ba_ms_per_lm_iter`` (the ``ba`` spans over their ``lm_iters``),
 ``filter_ransac_us_per_hyp`` (the ``filter.ransac`` spans over their
 ``hyps``), ``filter_nullvec_launches_per_hyp`` (their counter
@@ -79,7 +81,8 @@ import chip_smoke  # noqa: E402  (the bench sequence and configuration)
 # The stages each span reading reads.
 IDLE_STAGES = {"filter_idle_share": ("filter",), "chain_idle_share": ("bootstrap", "chain"),
                "ba_idle_share": ("ba",), "keyframes_idle_share": ("keyframes",),
-               "register_idle_share": ("register",)}
+               "register_idle_share": ("register",),
+               "motion_averaging_idle_share": ("motion_averaging",)}
 
 
 def union_pieces(intervals):
@@ -312,14 +315,15 @@ def main() -> int:
             stages.append(dict(eng.stage_times))
             runs.append(list(getattr(eng, "spans", None) or []))
             nullvec.append([nullvec_kernel.launches - n0, nullvec_kernel.systems - s0])
-            segsum.append([segsum_kernel.launches - k0,
-                           sum(s.counters.get("segsum_launches", 0) for s in runs[-1])])
+            segsum.append([segsum_kernel.launches - k0] +
+                          [sum(s.counters.get(k, 0) for s in runs[-1])
+                           for k in ("segsum_launches", "segsum_plans")])
             views += n_views
         median = sorted(walls)[len(walls) // 2]
         emit({"part": "engine_warm_s", "runs": walls, "median": median,
               "frames_per_s_median": views / len(walls) / median,
               "nullvec_launches_systems": nullvec,
-              "segsum_kernel_launches_span_launches": segsum})
+              "segsum_kernel_launches_span_launches_plans": segsum})
         emit({"part": "stage_times_s", "runs": stages,
               "filter_hyps_used_last_run": (None if eng.filter_hyps_used is None
                                             else [int(h) for h in eng.filter_hyps_used])})
@@ -360,6 +364,8 @@ def main() -> int:
     emit({"part": "trace", "wall_ms": wall_us / 1e3, "device_busy_ms": busy / 1e3,
           "device_idle_share": (1.0 - busy / wall_us) if wall_us else None,
           "kernel_launches": len(intervals), "dtoh_copies": d2h,
+          "indexing_backward_ms": sum(us for name, (us, _) in by_name.items()
+                                      if "indexing_backward" in name) / 1e3,
           "traced_stage_times_s": eng.stage_times,
           "top_device_kernels_ms": [[k[:120], c, us / 1e3] for us, k, c in top[:15]],
           "busy_share_in_stages": inside,
