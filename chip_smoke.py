@@ -30,8 +30,14 @@ Phases, each printing JSON lines:
              against ``index_put_(accumulate=True)`` at every cell's BA
              shapes and every row width it is built for, padding run included: within its stated tolerance, the
              same bits on every call, one launch a call, its times beside
-             its bound and ``index_put_``'s. ``--only-kernels`` stops after
-             this phase and prints no result line.
+             its bound and ``index_put_``'s. Then the translation-averaging
+             kernel against its plain version on the card at
+             ``glob20_ring``'s, ``kf150_video``'s and a 1,000-camera graph's
+             shapes, both branches, float32 and float64: centres within its
+             tolerance, one launch a call, the same bits on every call,
+             camera 0 at the origin, its times beside its bound and the plain
+             version's. ``--only-kernels`` stops after this phase and prints
+             no result line.
 3. slice   — ``reconstruct_two_view`` on views 1 and 2 of the bench scene at
              the bench settings, through both kernels (their launch counts are
              zeroed just before the timed run and read just after); the pose is
@@ -323,6 +329,37 @@ SEGSUM_SUMS = (("cam", 36), ("cam", 6), ("pt", 9), ("pt", 3), ("point_cam", 18),
                ("pt", 1))
 SEGSUM_TOL = 2.0
 SEGSUM_MAX_MS = 0.010
+
+# The translation-averaging kernel (csrc/translation_averaging.cu) against
+# its plain version (Python loops over the planned segment sums) on the
+# card, both at the engines' 12 rounds of 64 CG steps, on view graphs of
+# each cell's shape: cameras on an arc of radius 1 (glob20_ring's 20 views
+# 7.66 deg apart, kf150_video's 150 frames over 51 deg, 1,000 views around
+# the circle; z spread 0.3), window
+# edges over the cameras that have edges, a few random chords, unit
+# directions with 0.01 rad of noise and two outliers, scales with 5% noise,
+# weights in [0.3, 1], padded as GlobalSfmEngine pads (zero-weight
+# self-loops on camera 0). kf150_video's 150 cameras have ~10 keyframes
+# with edges; the others only the ridge. Centres are held to
+# TRANSAVG_TOL of the trajectory's extent; the CPU parity test against JAX
+# allows 1e-3 and measures below 1e-5. Where the plain version on the card
+# and the same plain version on the CPU (another order of the same sums, in
+# the same type) lie more than TRANSAVG_TOL / 10 apart, rounding decides the
+# CG's path (the projection branch's rank-1 gauge term at 1,000 cameras:
+# 64 steps of a system of condition far above 64^2, in float64 too), and no
+# implementation can be held to TRANSAVG_TOL: there the kernel is held to
+# lie no farther from the plain version on the card than TRANSAVG_ORDER_FACTOR
+# times the plain version's own two orders lie apart.
+TRANSAVG_SHAPES = {
+    "glob20_ring": dict(cams=20, active=20, window=3, chords=20, pad=128, arc_deg=153.2),
+    "kf150_video": dict(cams=150, active=10, window=3, chords=0, pad=128, arc_deg=51.0),
+    "large": dict(cams=1000, active=1000, window=2, chords=1100, pad=3200, arc_deg=360.0),
+}
+TRANSAVG_TOL = 1e-4
+TRANSAVG_ORDER_FACTOR = 10.0
+# One SM's shared memory: 32 banks of 4 bytes a clock at the H100 SXM's
+# 1,980 MHz boost clock; a single block's state passes through it.
+TRANSAVG_BYTES_PER_S = 128 * 1.98e9
 
 # The slice on the card against the port's own CPU run on the same images.
 # Response maps agree to ~1e-6 of their range, so keypoint sets agree all but
@@ -1895,6 +1932,148 @@ def segsum_phase(dev, peaks):
     )
 
 
+def transavg_graph(shape: dict, seed: int):
+    """A padded view graph of ``shape`` (``TRANSAVG_SHAPES``) as numpy
+    arrays: directions u (E, 3), edge_i, edge_j, scales s, weights w, the
+    initial centres c0 (C, 3) and the trajectory's extent."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    C, n = shape["cams"], shape["active"]
+    ang = np.radians(shape["arc_deg"]) * np.arange(C) / C
+    c = np.stack([np.cos(ang), np.sin(ang), 0.3 * rng.normal(size=C)], 1)
+    c -= c[0]
+    cams = np.linspace(0, C, n, endpoint=False).astype(np.int64)
+    edges = [(cams[a], cams[b]) for a in range(n)
+             for b in range(a + 1, min(n, a + shape["window"] + 1))]
+    seen = set(edges)
+    want = len(edges) + shape["chords"]
+    while len(edges) < want:
+        a, b = sorted(rng.choice(n, 2, replace=False))
+        if (cams[a], cams[b]) not in seen:
+            seen.add((cams[a], cams[b]))
+            edges.append((cams[a], cams[b]))
+    ei, ej = (np.array(v, np.int64) for v in zip(*edges))
+    E, pad = len(edges), shape["pad"] - len(edges)
+    u = c[ei] - c[ej]
+    s = np.linalg.norm(u, axis=1)
+    u = u / s[:, None] + 0.01 * rng.normal(size=(E, 3))
+    for k in rng.choice(E, 2, replace=False):
+        u[k] = rng.normal(size=3)
+    u /= np.linalg.norm(u, axis=1, keepdims=True)
+    s = s * np.exp(0.05 * rng.normal(size=E))
+    w = rng.uniform(0.3, 1.0, E)
+    zeros = np.zeros(pad, np.int64)
+    return dict(u=np.concatenate([u, np.tile([[0.0, 0.0, 1.0]], (pad, 1))]),
+                edge_i=np.concatenate([ei, zeros]), edge_j=np.concatenate([ej, zeros]),
+                s=np.concatenate([s, np.ones(pad)]), w=np.concatenate([w, np.zeros(pad)]),
+                c0=c + 0.05 * rng.normal(size=c.shape), edges=E,
+                extent=float(np.ptp(c, axis=0).max()))
+
+
+def _transavg_case(TK, SK, averaging, schur, g, dev, dtype, anchored):
+    """The kernel against the plain version on the card on graph ``g`` in
+    ``dtype``: the largest centre difference over the extent, beside the
+    plain version's own gap between the card and the CPU and the distance
+    to the plain version in float64; launches a call, segment-sum launches
+    (none), two calls bit for bit, camera 0, and the times."""
+    import torch
+
+    def tensors(dt, on=dev):
+        f = lambda k: torch.as_tensor(g[k], dtype=dt, device=on).contiguous()
+        ei = torch.as_tensor(g["edge_i"], device=on)
+        ej = torch.as_tensor(g["edge_j"], device=on)
+        return f("u"), ei, ej, f("c0"), f("w"), (f("s") if anchored else None)
+
+    C = g["c0"].shape[0]
+    u, ei, ej, c0, w, es = tensors(dtype)
+
+    def call():
+        return averaging.translation_averaging(u, ei, ej, c0, edge_w=w, num_cameras=C, edge_s=es)
+
+    def plain(dt, on=dev):
+        uu, ii, jj, cc, ww, ss = tensors(dt, on)
+        pi, pj = schur.segment_plan(ii, C), schur.segment_plan(jj, C)
+        return TK.translation_averaging_plain(uu, ii, jj, cc, ww, pi, pj, 12, 64, 0.5, 0.05, ss,
+                                              schur.segment_sum)
+
+    n0, s0 = TK.launches, SK.launches
+    a, b = call(), call()
+    torch.cuda.synchronize()
+    launches, segsum = (TK.launches - n0) / 2, SK.launches - s0
+    ref, ref64 = plain(dtype), plain(torch.float64)
+    ref_cpu = plain(dtype, torch.device("cpu"))
+    ext = g["extent"]
+    diff = float((a.double() - ref.double()).abs().max()) / ext
+    diff64 = float((a.double() - ref64).abs().max()) / ext
+    plain_gap = float((ref.double().cpu() - ref_cpu.double()).abs().max()) / ext
+    conditioned = plain_gap <= TRANSAVG_TOL / 10
+    ok = diff <= (TRANSAVG_TOL if conditioned else TRANSAVG_ORDER_FACTOR * plain_gap)
+    pi, pj = schur.segment_plan(ei, C), schur.segment_plan(ej, C)
+    row = dict(cameras=C, edges=g["edges"], padded=u.shape[0], dtype=str(dtype),
+               branch="anchored" if anchored else "projection", max_diff_over_extent=diff,
+               max_diff_to_f64_plain=diff64, plain_card_to_cpu=plain_gap,
+               held_to=("TRANSAVG_TOL" if conditioned else
+                        "TRANSAVG_ORDER_FACTOR x the plain version's card-to-CPU gap"),
+               ok=bool(ok), launches_per_call=launches, segsum_launches=segsum,
+               bit_equal=bool(torch.equal(a, b)), camera0_at_origin=bool((a[0] == 0).all()),
+               state_bytes=TK.state_bytes(C, u.shape[0], u.element_size()))
+    row.update(_kernel_times(call, lambda: TK._launch(u, ei, ej, c0, w, pi, pj, 12, 64, 0.5, 0.05,
+                                                     es),
+                             ("transavg_kernel",)))
+    row["plain_ms"] = _cuda_ms(lambda: plain(dtype), reps=1, warm=1)
+    row["bound_ms"] = (TK.transavg_bytes(C, u.shape[0], 12, 64, u.element_size())
+                       / TRANSAVG_BYTES_PER_S * 1e3)
+    return row
+
+
+def transavg_phase(dev):
+    """The translation-averaging kernel against its plain version on the
+    card at every shape of ``TRANSAVG_SHAPES``, both branches, float32 and
+    float64: within ``TRANSAVG_TOL`` (see there), one launch a call and no
+    segment-sum launch, the same bits on every call, camera 0 at the
+    origin; its times beside its bound and the plain version's."""
+    import torch
+
+    from sfmfromscratch_tpu_torch.ba import schur
+    from sfmfromscratch_tpu_torch.geometry import averaging
+    from sfmfromscratch_tpu_torch.ops.cuda import segsum_kernel as SK
+    from sfmfromscratch_tpu_torch.ops.cuda import transavg_kernel as TK
+
+    rows, failed = {}, []
+    for i, (name, shape) in enumerate(TRANSAVG_SHAPES.items()):
+        g = transavg_graph(shape, seed=22 + i)
+        for dtype, tag in ((torch.float32, ""), (torch.float64, ".f64")):
+            for anchored in (True, False):
+                key = f"{name}.{'anchored' if anchored else 'projection'}{tag}"
+                r = _transavg_case(TK, SK, averaging, schur, g, dev, dtype, anchored)
+                rows[key] = r
+                if not (r["ok"] and r["launches_per_call"] == 1 and r["segsum_launches"] == 0
+                        and r["bit_equal"] and r["camera0_at_origin"]):
+                    failed.append(f"{key}: {r}")
+    _print({"phase": "transavg", "tol": TRANSAVG_TOL, "order_factor": TRANSAVG_ORDER_FACTOR,
+            "cases": rows})
+    _check(not failed, "; ".join(failed))
+    main = rows["glob20_ring.anchored"]
+    rows = {k: v for k, v in rows.items() if not k.endswith(".f64")}
+    return dict(
+        name="translation_averaging_planned", route="cuda",
+        source="sfmfromscratch_tpu_torch/csrc/translation_averaging.cu",
+        replaces="none: XLA's lax.scan in sfmfromscratch_tpu/geometry/averaging.py:"
+                 "translation_averaging; in the port Python loops, ~24,000 launches a call",
+        max_diff_over_extent=max(r["max_diff_over_extent"] for r in rows.values()
+                                 if r["held_to"] == "TRANSAVG_TOL"),
+        held_to_the_order_gap=[k for k, r in rows.items() if r["held_to"] != "TRANSAVG_TOL"],
+        ms=main["device_ms"], device_ms=main["device_ms"], graph_ms=main["graph_ms"],
+        call_ms=main["call_ms"], plain_ms=main["plain_ms"], bound_ms=main["bound_ms"],
+        bound_by="bytes (one SM's shared memory)", library_ms=None,
+        per="glob20_ring's translation averaging: one launch, 20 cameras, 128 edges, 12 x 64",
+        **{f"{k}_path": dict(per=f"one launch, {v['cameras']} cameras, {v['padded']} edges",
+                             **{q: v[q] for q in ("device_ms", "call_ms", "bound_ms", "plain_ms")})
+           for k, v in rows.items() if k != "glob20_ring.anchored"},
+    )
+
+
 def slice_phase(dev):
     """reconstruct_two_view at the bench settings; returns the launch counts
     of the timed run."""
@@ -2234,8 +2413,11 @@ def global_phase(dev):
     prefix, res_cpu, cpu_ba_s = _resolve_ba_on_cpu(eng, eng.config.ba)
     cpu_e1 = float(res_cpu.final_mean_error)
     want = dict(GLOBAL_LAUNCHES, **{"match_top2_fused(bf16=True)": 0})
+    transavg = [sp.counters.get("transavg_launches") for sp in eng.spans
+                if sp.name == "motion_averaging"]
     _print({"phase": "global", "views": n, "cold_s": cold_s, "warm_s": warm_s,
             "stage_times_s": eng.stage_times, "launches": launches, "cameras": cams,
+            "transavg_launches": transavg,
             "ate": ate, "extent": extent, "ate_over_extent": ate / extent,
             "reproj_before_px": e0, "reproj_after_px": e1, "tracks": eng.map.num_tracks,
             "tracks_3plus": tracks_3, "observations": eng.map.num_observations,
@@ -2251,6 +2433,8 @@ def global_phase(dev):
                      "reproj_px": PIN_GLOBAL_REPROJ_PX, "min_tracks": PIN_GLOBAL_MIN_TRACKS,
                      "min_tracks_3plus": PIN_GLOBAL_MIN_TRACKS_3, "launches": want}})
     _check(launches == want, f"global launches {launches} != {want}")
+    _check(transavg == [1], f"motion averaging's translation-averaging launches {transavg}, "
+                            "want [1]")
     _check(native_tracks, f"C++ tracks {num_tracks} differ from the numpy union-find {num_plain}")
     _check(cams == PIN_GLOBAL_CAMERAS, f"{cams} cameras, want {PIN_GLOBAL_CAMERAS}")
     _check(bool(np.allclose(np.hstack(eng.global_poses[0]), 0.0, atol=1e-5)),
@@ -2267,7 +2451,7 @@ def global_phase(dev):
     for k, card, cpu, rel in prefix[:BA_PREFIX]:
         _check(rel <= BA_PREFIX_RTOL, f"global BA cost after {k} iterations: card {card} vs CPU {cpu}")
     _check(abs(cpu_e1 - e1) <= BA_FINAL_RTOL * e1, f"global BA final error card {e1} vs CPU {cpu_e1}")
-    return launches
+    return dict(launches, translation_averaging_planned=transavg[0])
 
 
 def orbit_phase(dev):
@@ -4900,6 +5084,7 @@ def main(argv) -> int:
         kernels = [harris_phase(dev, peaks), *match_phase(dev, peaks)]
         nullvec = nullvec_phase(dev, peaks)
         segsum = segsum_phase(dev, peaks)
+        transavg = transavg_phase(dev)
         # The ladder's kernel shapes here, with the other kernel cases: late
         # in a long process torch.profiler has dropped kernel activities.
         ladder_k = ladder_kernels(dev, peaks)
@@ -4915,7 +5100,7 @@ def main(argv) -> int:
             **{k: ladder_k["match"][k] for k in ("device_ms", "call_ms", "bound_ms", "plain_ms",
                                                  "library_ms", "max_abs_err")})
         if only_kernels:
-            _print({"kernels": kernels + [nullvec, segsum]})
+            _print({"kernels": kernels + [nullvec, segsum, transavg]})
             print("chip_smoke: --only-kernels given: slice and engine phases skipped, "
                   "no result line", file=sys.stderr)
             return 0
@@ -4947,8 +5132,9 @@ def main(argv) -> int:
             k["launches_scenarios"] = {run: n.get(k["name"], 0) for run, n in scenarios.items()}
             k["launches_ladder"] = {run: n.get(k["name"], 0) for run, n in ladder.items()}
         segsum["launches"] = launches.get(segsum["name"], 0)
+        transavg["launches_global"] = global_.get(transavg["name"], 0)
         print(smi, flush=True)
-        _print({"kernels": kernels + [nullvec, segsum]})
+        _print({"kernels": kernels + [nullvec, segsum, transavg]})
         _print({"ok": True, "device": {"platform": "gpu", "kind": name,
                                        "count": torch.cuda.device_count()}})
         return 0

@@ -11,9 +11,12 @@ the whole, padded, list, so a caller that pads as the JAX engine does gets
 its numbers. Segment sums are ``ba/schur.py::segment_sum`` over plans of
 ``edge_i`` and ``edge_j`` built once a call, deterministic on the card but
 in another order than on the CPU, so card and CPU agree to rounding. The
-JAX ``lax.scan`` sweeps become Python loops with no host read; the chordal
-initialisation's conjugate gradients read the residual on the host before
-each step, as the JAX ``while_loop`` tests it.
+rotation sweeps' ``lax.scan`` becomes a Python loop with no host read; on
+the card translation averaging's whole solve is one launch of
+``csrc/translation_averaging.cu`` (``ops/cuda/transavg_kernel.py``), its
+Python loops the plain version for the CPU; the chordal initialisation's
+conjugate gradients read the residual on the host before each step, as the
+JAX ``while_loop`` tests it.
 """
 
 from __future__ import annotations
@@ -25,6 +28,8 @@ import torch
 
 from sfmfromscratch_tpu_torch.ba.schur import conjugate_gradient, segment_plan, segment_sum
 from sfmfromscratch_tpu_torch.geometry.triangulation import two_view_depths
+from sfmfromscratch_tpu_torch.ops.cuda import transavg_kernel
+from sfmfromscratch_tpu_torch.ops.cuda.transavg_kernel import add_row0, anneal
 from sfmfromscratch_tpu_torch.utils.precision import mm_f32
 
 
@@ -36,19 +41,6 @@ def _project_so3(M: torch.Tensor) -> torch.Tensor:
     d = torch.where(d == 0, torch.ones_like(d), torch.sign(d))
     D = torch.stack([torch.ones_like(d), torch.ones_like(d), d], dim=-1)
     return (U * D[..., None, :]) @ Vt
-
-
-def _add_row0(out: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """``out.at[0].add(v)``."""
-    return torch.cat([out[:1] + v[None], out[1:]])
-
-
-def _anneal(start: float, final: float, num_iters: int, t: int, dtype, device) -> torch.Tensor:
-    """``max(start * decay ** t, final)`` in the JAX dtype, decay chosen so
-    the threshold reaches ``final`` at half of ``num_iters``."""
-    decay = (final / start) ** (1.0 / max(num_iters // 2, 1))
-    tt = torch.tensor(float(t), dtype=dtype, device=device)
-    return torch.clamp_min(start * decay ** tt, final)
 
 
 @mm_f32
@@ -76,7 +68,7 @@ def rotation_averaging(
     R_rel_T = R_rel.transpose(-1, -2)
     R = R_init
     for t in range(num_iters):
-        eps_t = _anneal(eps_start, eps_final, num_iters, t, R_init.dtype, R_init.device)
+        eps_t = anneal(eps_start, eps_final, num_iters, t, R_init.dtype, R_init.device)
         Ri, Rj = R[ei], R[ej]
         r = torch.linalg.norm(R_rel @ Ri - Rj, dim=(-2, -1))
         w = w0 / torch.maximum(r, eps_t)
@@ -119,10 +111,10 @@ def chordal_rotation_init(
         wi = w[:, None, None]
         S = segment_sum(wi * (Mj - R_rel @ Mi), plan_j)
         S = S + segment_sum(wi * (Mi - R_rel_T @ Mj), plan_i)
-        return _add_row0(S, anchor * M[0])
+        return add_row0(S, anchor * M[0])
 
-    b = _add_row0(torch.zeros((C, 3, 3), dtype=R_init.dtype, device=R_init.device),
-                  anchor * R_init[0])
+    b = add_row0(torch.zeros((C, 3, 3), dtype=R_init.dtype, device=R_init.device),
+                 anchor * R_init[0])
     M = R_init
     for _ in range(max(irls_rounds, 1)):
         r = torch.linalg.norm(R_rel @ M[ei] - M[ej], dim=(-2, -1))
@@ -133,26 +125,6 @@ def chordal_rotation_init(
         M = M + d.reshape(C, 3, 3)
     R = _project_so3(M)
     return (R @ R[0].transpose(-1, -2)[None]) @ R_init[0][None]
-
-
-def _cg_fixed(apply, c: torch.Tensor, b: torch.Tensor, cg_iters: int) -> torch.Tensor:
-    """Plain CG for exactly ``cg_iters`` steps from ``c`` (the JAX ``scan``:
-    no early exit, guarded divisions)."""
-    rr = b - apply(c)
-    p = rr
-    rs = torch.sum(rr * rr)
-    x = c
-    for _ in range(cg_iters):
-        Ap = apply(p)
-        denom = torch.sum(p * Ap)
-        alpha = rs / torch.where(torch.abs(denom) < 1e-12, 1e-12, denom)
-        x = x + alpha * p
-        rr = rr - alpha * Ap
-        rs_new = torch.sum(rr * rr)
-        beta = rs_new / torch.where(rs < 1e-12, 1e-12, rs)
-        p = rr + beta * p
-        rs = rs_new
-    return x
 
 
 @mm_f32
@@ -175,71 +147,15 @@ def translation_averaging(
     ``s_e`` blended from the data towards the current stretch; without it,
     Govindu's projection least squares with a linear stretch gauge. Both
     Huber-damp edges by their scale-free residual, annealed; camera 0 is
-    pinned at the origin."""
+    pinned at the origin. The plans of ``edge_i`` and ``edge_j`` are built
+    here; the solve is one kernel launch for CUDA tensors (all of one type,
+    contiguous), the planned segment sums' Python loops for CPU tensors."""
     C = num_cameras if num_cameras else c_init.shape[0]
     ei, ej = edge_i.long(), edge_j.long()
     plan_i, plan_j = segment_plan(ei, C), segment_plan(ej, C)
-    dt, dev = c_init.dtype, c_init.device
-    w0 = torch.ones(u_dir.shape[0], dtype=u_dir.dtype, device=u_dir.device) \
-        if edge_w is None else edge_w
-    pin = 10.0
-    sum_w0 = torch.clamp_min(torch.sum(w0), 1e-9)
-    c = c_init - c_init[0][None]
-
-    if edge_s is not None:
-        s_data = edge_s.to(u_dir.dtype)
-
-        def apply_L(cc, w):
-            d = cc[ei] - cc[ej]
-            wd = w[:, None] * d
-            out = segment_sum(wd, plan_i) - segment_sum(wd, plan_j)
-            out = _add_row0(out, pin * cc[0])
-            return out + 1e-8 * cc
-
-        for t in range(num_iters):
-            delta_t = _anneal(huber_start, huber_final, num_iters, t, dt, dev)
-            d = c[ei] - c[ej]
-            along = torch.sum(u_dir * d, dim=-1)
-            lam = 0.5 ** torch.tensor(float(t), dtype=dt, device=dev)
-            s = lam * s_data + (1.0 - lam) * torch.maximum(along, 0.05 * s_data)
-            r = torch.linalg.norm(d - s[:, None] * u_dir, dim=-1)
-            rn = r / torch.clamp_min(s, 1e-9)
-            w = w0 * torch.clamp_max(delta_t / torch.clamp_min(rn, 1e-9), 1.0)
-            wsu = (w * s)[:, None] * u_dir
-            b = segment_sum(wsu, plan_i) - segment_sum(wsu, plan_j)
-            c_new = _cg_fixed(lambda p: apply_L(p, w), c, b, cg_iters)
-            c = c_new - c_new[0][None]
-        return c
-
-    rho = 1.0
-    target = sum_w0
-
-    def gvec(w):
-        wu = w[:, None] * u_dir
-        return segment_sum(wu, plan_i) - segment_sum(wu, plan_j)
-
-    def apply_A(cc, w, g):
-        d = cc[ei] - cc[ej]
-        proj = d - u_dir * torch.sum(u_dir * d, dim=-1, keepdim=True)
-        wp = w[:, None] * proj
-        out = segment_sum(wp, plan_i) - segment_sum(wp, plan_j)
-        out = _add_row0(out, pin * cc[0])
-        return out + rho * torch.sum(g * cc) * g
-
-    for t in range(num_iters):
-        delta_t = _anneal(huber_start, huber_final, num_iters, t, dt, dev)
-        d = c[ei] - c[ej]
-        along = torch.sum(u_dir * d, dim=-1)
-        mean_len = torch.sum(w0 * torch.abs(along)) / sum_w0
-        scale = torch.clamp_min(mean_len, 1e-9)
-        r = torch.linalg.norm(d - along[:, None] * u_dir, dim=-1) / scale
-        w = w0 * torch.clamp_max(delta_t / torch.clamp_min(r, 1e-9), 1.0)
-        w = w * torch.where(along > 0, 1.0, 0.05)
-        g = gvec(w)
-        b = rho * target * g
-        c_new = _cg_fixed(lambda p: apply_A(p, w, g), c, b, cg_iters)
-        c = c_new - c_new[0][None]
-    return c
+    return transavg_kernel.translation_averaging_planned(
+        u_dir, ei, ej, c_init, edge_w, plan_i, plan_j, num_iters=num_iters, cg_iters=cg_iters,
+        huber_start=huber_start, huber_final=huber_final, edge_s=edge_s, segment_sum=segment_sum)
 
 
 @mm_f32

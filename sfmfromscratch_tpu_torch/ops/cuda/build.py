@@ -36,6 +36,7 @@ SOURCES = {
     "match_top2": "match_top2.cu",
     "nullvec_qr": "nullvec_qr.cu",
     "segment_sum": "segment_sum.cu",
+    "translation_averaging": "translation_averaging.cu",
 }
 
 NVCC_FLAGS = [

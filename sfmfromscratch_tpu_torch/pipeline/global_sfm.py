@@ -73,6 +73,7 @@ from sfmfromscratch_tpu_torch.geometry.ransac import (
 from sfmfromscratch_tpu_torch.geometry.triangulation import triangulate_multiview, two_view_depths
 from sfmfromscratch_tpu_torch.geometry.two_view import refine_relative_pose
 from sfmfromscratch_tpu_torch.native.bindings import build_tracks
+from sfmfromscratch_tpu_torch.ops.cuda import transavg_kernel
 from sfmfromscratch_tpu_torch.ops.lie import so3_exp, so3_log
 from sfmfromscratch_tpu_torch.ops.matcher import match_pairs_batch  # noqa: F401  (JAX's name)
 from sfmfromscratch_tpu_torch.ops.retrieval import retrieval_similarity
@@ -690,8 +691,13 @@ class GlobalSfmEngine(SfmEngine):
         homography-ambiguity swap, cycle-casualty redemption and the
         rotation gate, repair again, translation directions refit under the
         averaged rotations, edge scales, walk init and translation
-        averaging."""
+        averaging. The span's counter ``transavg_launches`` is the
+        translation-averaging kernel's launches inside it (its host-side
+        count, no sync); the child span ``motion_averaging.translation``
+        runs from the solve's call to the host copy of its centres, out of
+        ``stage_times``."""
         span = self._stage("motion_averaging")
+        launches0 = transavg_kernel.launches
         C = self.max_img
         dev = self.device
         w_pre = np.asarray(self._edge_w, np.float64).copy()
@@ -827,11 +833,14 @@ class GlobalSfmEngine(SfmEngine):
 
         su = u_np * lam[:, None]
         c0 = chain_initial_centers(su[nz].astype(np.float32), ei[nz], ej[nz], C, device=dev)
+        child = self._timer.open("motion_averaging.translation")
         c = translation_averaging(
             u, ei_j, ej_j, c0, edge_w=w_j, num_cameras=C, num_iters=self.trans_avg_iters,
             edge_s=_pad_edges(self._dev(lam), Eb, 1.0),
         )
         self.R_cams, self.c_cams = R.cpu().numpy(), c.cpu().numpy()
+        self._timer.close(child, time_as=None)   # the host copy waited for the device
+        span.counters["transavg_launches"] = transavg_kernel.launches - launches0
         self._stage_end(span)
 
     def _edge_scales(self, z1: np.ndarray, z2: np.ndarray, nz: np.ndarray) -> np.ndarray:

@@ -383,8 +383,9 @@ class SfmEngine:
         """Seconds by stage name: the durations of the run's spans summed by
         name (the root span ``run`` as ``"total"``; the child spans
         ``decode``, ``filter.ransac``, ``relpose_ransac``, ``relpose_refine``,
-        ``register.match``, ``register.link``, ``register.pnp`` and
-        ``chain_refresh.scales`` are left out)."""
+        ``register.match``, ``register.link``, ``register.pnp``,
+        ``motion_averaging.translation`` and ``chain_refresh.scales`` are
+        left out)."""
         return self._timer.times
 
     @stage_times.setter

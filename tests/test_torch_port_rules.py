@@ -13,6 +13,7 @@ import ast
 import ctypes
 import os
 import pathlib
+import re
 import shutil
 import subprocess
 import sys
@@ -820,7 +821,8 @@ def test_bind_loads_once_and_raises_on_a_cuda_error(monkeypatch):
     ret[0] = 700
     with pytest.raises(RuntimeError, match="sfm_fake failed with CUDA error 700"):
         launch(torch.device("cuda", 0), 1, 2)
-    for wrapper in ("harris_kernel", "match_kernel", "nullvec_kernel", "segsum_kernel"):
+    for wrapper in ("harris_kernel", "match_kernel", "nullvec_kernel", "segsum_kernel",
+                    "transavg_kernel"):
         text = (PORT / "ops" / "cuda" / f"{wrapper}.py").read_text()
         assert text.count(" = bind(") == 1 and "cuda_stream" not in text, wrapper
 
@@ -832,6 +834,21 @@ def test_port_sums_take_no_accumulating_index_put():
     files = [p for p in PORT.rglob("*") if p.suffix in (".py", ".cu")]
     assert PORT / "ba" / "schur.py" in files and PORT / "csrc" / "segment_sum.cu" in files
     assert [p for p in files if "accumulate=True" in p.read_text()] == []
+
+
+def test_kernels_take_no_atomics_and_wrappers_no_fallback():
+    """Sums on the card add in a fixed order: no kernel source calls an
+    atomic (``atomicAdd`` and its kin); a wrapper launches its kernel for a
+    CUDA tensor or raises, with no ``try`` that falls back to the plain
+    version."""
+    sources = sorted((PORT / "csrc").glob("*.cu"))
+    assert PORT / "csrc" / "translation_averaging.cu" in sources
+    assert [p.name for p in sources if re.search(r"\batomic\w*\s*[(<]", p.read_text())] == []
+    wrappers = sorted((PORT / "ops" / "cuda").glob("*_kernel.py"))
+    assert PORT / "ops" / "cuda" / "transavg_kernel.py" in wrappers
+    for path in wrappers:
+        tree = ast.parse(path.read_text(), str(path))
+        assert not [n for n in ast.walk(tree) if isinstance(n, ast.Try)], path.name
 
 
 def _fake_nvcc(tmp_path, ok: bool) -> str:
@@ -867,19 +884,20 @@ def test_build_is_keyed_by_source(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "nvcc_path", lambda: nvcc)
     build.build_all()
     calls = (tmp_path / "calls.log").read_text().splitlines()
-    assert len(calls) == len(build.SOURCES) == 4
+    assert len(calls) == len(build.SOURCES) == 5
     assert all("arch=compute_90a,code=sm_90a" in c and "-shared" in c for c in calls)
     paths = {n: build.library_path(n) for n in build.SOURCES}
     assert all(os.path.exists(p) for p in paths.values())
     build.build_all()
-    assert len((tmp_path / "calls.log").read_text().splitlines()) == 4
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 5
     (csrc / "harris.cu").write_text((csrc / "harris.cu").read_text() + "\n// changed\n")
     assert build.library_path("harris") != paths["harris"]
     assert build.library_path("match_top2") == paths["match_top2"]
     assert build.library_path("nullvec_qr") == paths["nullvec_qr"]
     assert build.library_path("segment_sum") == paths["segment_sum"]
+    assert build.library_path("translation_averaging") == paths["translation_averaging"]
     build.build_all()
-    assert len((tmp_path / "calls.log").read_text().splitlines()) == 5
+    assert len((tmp_path / "calls.log").read_text().splitlines()) == 6
 
 
 def test_build_keeps_nvcc_report(tmp_path, monkeypatch):

@@ -34,7 +34,7 @@ torch.set_num_threads(1)   # tier-1 runs several pytest workers at once
 
 # Spans that are children only: ``stage_times`` leaves them out.
 CHILD_ONLY = {"decode", "filter.ransac", "relpose_ransac", "relpose_refine",
-              "chain_refresh.scales"}
+              "motion_averaging.translation", "chain_refresh.scales"}
 
 
 def _config():
@@ -104,7 +104,7 @@ def test_spans_nest_and_sum_to_stage_times(kind, engines):
     assert {"features>decode", "filter>filter.ransac"} <= children
     if kind == "global":
         assert {"relative_poses>relpose_ransac", "relative_poses>relpose_refine",
-                "ba.round1>ba"} <= children
+                "motion_averaging>motion_averaging.translation", "ba.round1>ba"} <= children
     sums = {}
     for s in spans:
         if s.name not in CHILD_ONLY:
@@ -120,12 +120,17 @@ def test_spans_nest_and_sum_to_stage_times(kind, engines):
 def test_span_counters(kind, engines):
     """``filter.ransac``'s ``hyps`` sum to ``filter_hyps_used`` (every
     ``_filter`` call counted once), and its ``nullvec_launches`` are 0 on
-    the CPU (the plain QR launches no kernel); the last ``ba`` span's
-    ``lm_iters`` are the last BA's ``iterations_used``."""
+    the CPU (the plain QR launches no kernel); the global engine's
+    ``motion_averaging`` counts ``transavg_launches``, 0 on the CPU (the
+    plain loops); the last ``ba`` span's ``lm_iters`` are the last BA's
+    ``iterations_used``."""
     eng = engines[kind]
     hyps = [s.counters["hyps"] for s in eng.spans if s.name == "filter.ransac"]
     assert len(hyps) == 1 and hyps[0] == int(eng.filter_hyps_used.sum()) > 0
     assert [s.counters["nullvec_launches"] for s in eng.spans if s.name == "filter.ransac"] == [0]
+    averaging = [s.counters.get("transavg_launches") for s in eng.spans
+                 if s.name == "motion_averaging"]
+    assert averaging == ([0] if kind == "global" else [])
     ba = [s for s in eng.spans if s.name == "ba"]
     assert ba and ba[-1].counters["lm_iters"] == eng.ba_result.iterations_used > 0
 
@@ -320,3 +325,26 @@ def test_profile_engine_segsum_readings():
     assert got["segsum_plans_per_ba"] == pytest.approx(7 / 3)
     assert got["ba_index_put_ms"] == pytest.approx(1e-6 * (10 + 5 + 10))
     assert got["ba_segsum_kernel_ms"] == 0
+
+
+def test_profile_engine_transavg_readings():
+    """The global engine's translation-averaging readings of
+    ``tools/profile_engine.py`` on hand-made spans (ns): the kernel's
+    launches a run from the ``motion_averaging`` spans' counter (None where
+    no span counts them, as on a tree before the kernel) and the
+    ``motion_averaging.translation`` spans' ms a run that has one."""
+    runs = [[_span("run", 0, 9_000_000, parent=None),
+             _span("motion_averaging", 0, 5_000_000, transavg_launches=1, segsum_plans=6),
+             _span("motion_averaging.translation", 4_000_000, 4_600_000, parent=1)],
+            [_span("run", 0, 9_000_000, parent=None),
+             _span("motion_averaging", 0, 3_000_000, transavg_launches=1),
+             _span("motion_averaging.translation", 2_000_000, 2_200_000, parent=1)]]
+    pieces = profile_engine.union_pieces([(0, 10)])
+    got = profile_engine.span_readings(runs[0], runs[0], pieces, runs, views=40)
+    assert got["transavg_launches_per_job"] == pytest.approx(1.0)
+    assert got["averaging_translation_ms_per_job"] == pytest.approx(0.4)
+    before = [[_span("run", 0, 9_000_000, parent=None),
+               _span("motion_averaging", 0, 5_000_000, segsum_plans=6)]]
+    got = profile_engine.span_readings(before[0], before[0], pieces, before, views=20)
+    assert got["transavg_launches_per_job"] is None
+    assert got["averaging_translation_ms_per_job"] is None

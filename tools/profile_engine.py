@@ -8,7 +8,9 @@ Builds the port's kernels, warms the engine at the bench configuration
    device synchronize), the null-vector kernel's launches and systems
    (its wrapper's counters), and the segment-sum kernel's launches beside
    the planned sums and the plans its spans counted (``segsum_launches``,
-   ``segsum_plans``);
+   ``segsum_plans``), and the global engine's translation-averaging kernel
+   launches and host ms (the ``motion_averaging`` spans' counter
+   ``transavg_launches`` and the ``motion_averaging.translation`` spans);
 2. traces the first timed run's scene and seed once more with
    ``torch.profiler`` (CUDA activity): the kernels with the most device
    time, the device's busy time (the union of its kernel and copy
@@ -54,7 +56,13 @@ keyframed global engine ``register_pnp_us_per_frame`` and
 ``register_link_ms_per_frame`` (the ``register.pnp`` and ``register.link``
 spans over the ``register`` spans' ``frames``) and
 ``register_failed_per_job`` (the ``register`` spans' ``failed``, frames
-that kept a keyframe's pose, a run), each over the timed runs. Prints one
+that kept a keyframe's pose, a run); for the global engine
+``transavg_launches_per_job`` (the ``motion_averaging`` spans'
+``transavg_launches``, the translation-averaging kernel's launches, a run;
+None on a tree whose spans do not count them) and
+``averaging_translation_ms_per_job`` (the ``motion_averaging.translation``
+spans, from the solve's call to its host copy, a run), each over the timed
+runs. Prints one
 JSON line per part as it is measured and, with ``--out``, appends it to
 that file (JSON lines).
 
@@ -159,6 +167,15 @@ def per_run(runs, name, counter):
             if having else None)
 
 
+def span_ms_per_run(runs, name):
+    """The spans ``name`` in ms, summed over the runs that have such a
+    span, over those runs; None where none has."""
+    having = [_closed(spans, (name,)) for spans in runs]
+    having = [ss for ss in having if ss]
+    return (1e-6 * sum(s.end_ns - s.start_ns for ss in having for s in ss) / len(having)
+            if having else None)
+
+
 def span_readings(traced, plain, pieces, runs, views, kernel_pieces=None):
     """The span readings of a traced run's spans ``traced`` against the
     first timed run's ``plain``, the device's union ``pieces`` (ns on the
@@ -180,6 +197,11 @@ def span_readings(traced, plain, pieces, runs, views, kernel_pieces=None):
     out["register_link_ms_per_frame"] = per_count(runs, "register.link", "frames", 1e3,
                                                   of="register")
     out["register_failed_per_job"] = per_run(runs, "register", "failed")
+    counted = any("transavg_launches" in s.counters
+                  for spans in runs for s in _closed(spans, ("motion_averaging",)))
+    out["transavg_launches_per_job"] = (per_run(runs, "motion_averaging", "transavg_launches")
+                                        if counted else None)
+    out["averaging_translation_ms_per_job"] = span_ms_per_run(runs, "motion_averaging.translation")
     decode = [s for spans in runs for s in _closed(spans, ("decode",))]
     out["decode_ms_per_view"] = (1e-6 * sum(s.end_ns - s.start_ns for s in decode) / views
                                  if decode else None)
@@ -304,7 +326,7 @@ def main() -> int:
               "workload": args.workload, "seed": args.seed if args.workload else None})
         job(-1)
         torch.cuda.synchronize()
-        walls, stages, runs, views, nullvec, segsum = [], [], [], 0, [], []
+        walls, stages, runs, views, nullvec, segsum, transavg = [], [], [], 0, [], [], []
         for i in range(args.runs):
             n0, s0 = nullvec_kernel.launches, nullvec_kernel.systems
             k0 = segsum_kernel.launches
@@ -318,12 +340,15 @@ def main() -> int:
             segsum.append([segsum_kernel.launches - k0] +
                           [sum(s.counters.get(k, 0) for s in runs[-1])
                            for k in ("segsum_launches", "segsum_plans")])
+            transavg.append([sum(s.counters.get("transavg_launches", 0) for s in runs[-1]),
+                             span_ms_per_run(runs[-1:], "motion_averaging.translation")])
             views += n_views
         median = sorted(walls)[len(walls) // 2]
         emit({"part": "engine_warm_s", "runs": walls, "median": median,
               "frames_per_s_median": views / len(walls) / median,
               "nullvec_launches_systems": nullvec,
-              "segsum_kernel_launches_span_launches_plans": segsum})
+              "segsum_kernel_launches_span_launches_plans": segsum,
+              "transavg_launches_translation_ms": transavg})
         emit({"part": "stage_times_s", "runs": stages,
               "filter_hyps_used_last_run": (None if eng.filter_hyps_used is None
                                             else [int(h) for h in eng.filter_hyps_used])})
