@@ -177,7 +177,7 @@ def readings(bench, name: str, seeds, jobs: int, variants, device, sync, tmp: st
     cell = dict(bench.cell(name), pool=min(bench.cell(name)["pool"], jobs))
     for seed in seeds:
         root = os.path.join(tmp, str(seed))
-        pool, warm = make_pool(cell, cfg, seed, root)
+        pool, warm = make_pool(cell, cfg, seed, root, bench.scenes)
         J.run_job(0, -1, warm, cfg, seed ^ 0x5EED, device, sync)
         for i in range(jobs):
             rec = J.run_job(i, i % len(pool), pool[i % len(pool)], cfg, seed, device, sync)

@@ -80,6 +80,24 @@ def pipeline_config(cfg: dict, seed: int):
         scale_factor=float(cfg["scale_factor"]), seed=int(seed))
 
 
+def engine_args(cfg: dict, scene) -> dict:
+    """The keywords with which a job builds the configuration's engine on
+    ``scene``, past the directory, the image count and the config: the
+    scene's K (``single_K``), or, where the configuration names
+    ``intrinsics``, no K and the sensor, so that the engine takes K from
+    each file's EXIF focal length; then the configuration's
+    ``engine_kwargs``."""
+    intr = cfg.get("intrinsics")
+    if intr is None:
+        kw = dict(single_K=scene.K)
+    else:
+        from sfmfromscratch_tpu_torch.geometry.camera import SensorType
+
+        kw = dict(single_K=None, camera_sensor=SensorType[intr["camera_sensor"]])
+    kw.update(cfg.get("engine_kwargs", {}))
+    return kw
+
+
 def want_cameras(cfg: dict, views: int) -> int:
     """Cameras a job of ``views`` images must register: every image in the
     global engine, every image after the first (the world's) in the
@@ -98,8 +116,8 @@ def run_job(index: int, scene_index: int, scene, cfg: dict, run_seed: int, devic
                     first_image=1 if cfg["engine"] == "GlobalSfmEngine" else 2)
     rec.start = time.perf_counter()
     try:
-        eng = engine(scene.dir, views, config=pipeline_config(cfg, seed), single_K=scene.K,
-                     model_name=None, device=device, **cfg.get("engine_kwargs", {}))
+        eng = engine(scene.dir, views, config=pipeline_config(cfg, seed), model_name=None,
+                     device=device, **engine_args(cfg, scene))
         sync()
         rec.end = time.perf_counter()
         rec.stage_times = dict(eng.stage_times)

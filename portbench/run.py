@@ -6,10 +6,12 @@ Set-up (timed as ``setup_s``, from this file's first line to the window's
 start): imports, the program's CUDA and C++ builds (built once per
 checkout into the program's own ``_build/`` directory), the cell's pool of
 scenes rendered from ``--seed`` (or from the cell's fixed ``scene_seed``)
-and written as JPEG files under ``TMPDIR``,
-and one warm-up job on a scene outside the pool. The window: a closed loop
-of one client, jobs back to back through the configuration's engine until
-``--seconds`` have passed, every started job run to its end. After the
+by the generator the cell names (``scenes/<renderer>.py``; its views in
+worker processes that end before the window, where it allows) and written
+as JPEG files under ``TMPDIR``, and one warm-up job on a scene outside the
+pool. The window: a closed loop of one client, jobs back to back through
+the configuration's engine until ``--seconds`` have passed, every started
+job run to its end. After the
 window, with no clock running: the end-to-end metrics (or, with
 ``--trace 1``, the per-layer ones), the comparison with the plain reference
 that decides ``correct`` (``check.py``), and one JSON line on standard
@@ -78,7 +80,7 @@ def measure(bench, name: str, seed: int, seconds: float, traced: bool, device, s
     cfg = bench.config(wl["config"])
     cell = bench.cell(name)
     t_pool = time.perf_counter()
-    pool, warm = make_pool(cell, cfg, seed, tmp)
+    pool, warm = make_pool(cell, cfg, seed, tmp, bench.scenes)
     t_warm = time.perf_counter()
     J.run_job(0, -1, warm, cfg, seed ^ 0x5EED, device, sync)
     sync()

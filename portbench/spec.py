@@ -1,7 +1,9 @@
 """``BENCHMARK.json`` and the files it names, found by name: a cell's file
-``workloads/<cell>.json``, a configuration's file (its ``file`` entry) and a
-per-layer metric's reader ``metrics/<metric>.py``. Adding a cell, a
-configuration or a metric adds files and entries; no code here changes."""
+``workloads/<cell>.json``, a configuration's file (its ``file`` entry), a
+per-layer metric's reader ``metrics/<metric>.py`` and a cell's scene
+generator and imaging steps ``scenes/<name>.py``. Adding a cell, a
+configuration, a metric, a generator or an imaging step adds files and
+entries; no code here changes."""
 
 from __future__ import annotations
 
@@ -11,10 +13,21 @@ import os
 import re
 
 
-
 def load_json(path: str) -> dict:
     with open(path) as f:
         return json.load(f)
+
+
+def load_module(path: str, package: str):
+    """The module of the file ``path``, loaded by its path as
+    ``<package>.<file name>``."""
+    if not os.path.isfile(path):
+        raise FileNotFoundError(path)
+    name = os.path.splitext(os.path.basename(path))[0]
+    spec = importlib.util.spec_from_file_location(package + "." + re.sub(r"\W", "_", name), path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
 
 
 class Bench:
@@ -46,9 +59,9 @@ class Bench:
 
     def reader(self, name: str):
         """The ``read`` function of ``metrics/<name>.py``."""
-        path = os.path.join(self.dir, "metrics", f"{name}.py")
-        spec = importlib.util.spec_from_file_location(
-            "portbench.metrics." + re.sub(r"\W", "_", name), path)
-        mod = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(mod)
-        return mod.read
+        return load_module(os.path.join(self.dir, "metrics", f"{name}.py"), "portbench.metrics").read
+
+    @property
+    def scenes(self) -> str:
+        """The directory of the scene generators and imaging steps."""
+        return os.path.join(self.dir, "scenes")

@@ -10,6 +10,7 @@ import shutil
 import pytest
 
 from portbench import spec
+from portbench.scenes import pool
 
 PB = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ROOT = os.path.dirname(PB)
@@ -98,15 +99,38 @@ def test_every_file_is_found_by_name():
         cell = bench.cell(w["name"])
         assert w["chips"] == 1 and cell["traffic"] == w["traffic"]
         assert cell["limits"] and all(v is not None for v in cell["limits"].values())
+        pool.check_cell(cell, bench.scenes)      # its generator and imaging steps have files
         cfg = bench.config(w["config"])
         if "num_views" in cfg:
             assert cell["views"] == cfg["num_views"]
+        if "intrinsics" in cfg:
+            from sfmfromscratch_tpu_torch.geometry.camera import SensorType
+
+            assert cfg["intrinsics"]["camera_sensor"] in SensorType.__members__
+            assert cfg["intrinsics"]["exif_focal_mm"] > 0
         # every cell reports setup_s, another end-to-end metric and a per-layer metric
         e2e = {m["name"] for m in bench.metrics_for("end_to_end", w["name"])}
         assert "setup_s" in e2e and len(e2e) >= 2
         assert bench.metrics_for("per_layer", w["name"])
     for m in doc["per_layer"]:
         assert callable(bench.reader(m["name"]))
+
+
+def test_an_orbit_is_rendered_at_its_configurations_spacing():
+    """A cell that renders an orbit runs the spacing its configuration
+    states (``view_step_deg``, from the configuration's source), so no cell
+    runs another deployment's spacing under a configuration's name."""
+    bench = spec.Bench(ROOT)
+    orbits = 0
+    for w in _doc()["workloads"]:
+        step = bench.cell(w["name"])["render"].get("orbit_step_deg")
+        cfg = bench.config(w["config"])
+        if step is not None:
+            orbits += 1
+            assert "view_step_deg" in cfg, w["name"]
+        if "view_step_deg" in cfg:
+            assert step == cfg["view_step_deg"], (w["name"], step, cfg["view_step_deg"])
+    assert orbits
 
 
 def test_a_new_cell_needs_new_files_and_entries_only(tmp_path):
@@ -131,3 +155,16 @@ def test_a_new_cell_needs_new_files_and_entries_only(tmp_path):
         doc["per_layer"][0]["name"]]
     with pytest.raises(KeyError):
         bench.workload("no_such_cell")
+
+
+def test_a_cell_that_names_a_generator_or_step_with_no_file_is_rejected():
+    bench = spec.Bench(ROOT)
+    cell = bench.cell("glob20_ring")
+    with pytest.raises(FileNotFoundError):
+        pool.check_cell(dict(cell, renderer="render_nowhere"), bench.scenes)
+    with pytest.raises(FileNotFoundError):
+        pool.check_cell(dict(cell, imaging=[{"step": "degrade_nowhere", "kw": {}}]), bench.scenes)
+    with pytest.raises(ValueError):      # a file of the directory that is no generator
+        pool.check_cell(dict(cell, renderer="pool"), bench.scenes)
+    with pytest.raises(ValueError):
+        pool.check_cell(dict(cell, order="reversed"), bench.scenes)
